@@ -30,3 +30,8 @@ import pytest  # noqa: E402
 @pytest.fixture
 def rng():
     return np.random.default_rng(10)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips with a reason where there is none")
