@@ -7,17 +7,32 @@ Phases, one line each (any failure exits non-zero; no phase is skipped):
 
 1. device: needs ``torch.cuda.is_available()``; prints the card's name and
    power limit as ``nvidia-smi`` reports them.
-2. build: compiles every CUDA source of the port with ``nvcc`` for sm_90a.
+2. build: compiles every CUDA source of the port with ``nvcc`` for sm_90a,
+   one ``nvcc`` per source, all at once.
 3. kernels: the approximate-multiplier GEMM (K3) against its plain PyTorch
-   version on the card, at the four ViT-B/16 layer shapes on a 64-row slice
-   and in the eight flag cases of the JAX package's Pallas tests; times
-   both at the shapes of a batch-8 forward.
+   version on the card, at the four ViT-B/16 layer shapes on a 64-row slice,
+   in the eight flag cases of the JAX package's Pallas tests and on every
+   single product of the E2M5 value space under s2nn2s; the bit-ops
+   quantizer (K1) on random, zero, subnormal, +-maxval and clip-edge inputs;
+   the fused quant GEMM (K2) and the packed-FP8 dequant GEMM (K4) in every
+   switch combination at the four dense shapes on a 64-row slice and an
+   unaligned one. At the shapes of a batch-8 forward, in the configurations
+   the main path launches (K1 at every size it sees, K2 on bf16 x, K4 on
+   bf16 and on coded x), checks each kernel against its plain version
+   again and times it, its plain version and (for the GEMMs) cuBLAS,
+   beside the card's bound.
 4. main path: ``validate-quantized`` through the port's CLI on full-width
    ViT-B/16 (seeded random weights, synthetic data, batch 8, one calibration
-   and two eval batches) with the approximate multiplier, counting kernel
-   launches; then the reference's published flag set, which launches none.
-5. model: full-width logits of the approximate ViT at depth 2, batch 1,
-   through the kernel and through the plain version on the card.
+   and two eval batches): with the approximate multiplier (K3); with the
+   reference's published flag set, which launches none; and with the
+   published flags in the serving modes ``--fast-mode`` (K1, K2),
+   ``--fast-mode --packed-weights`` and ``... --chained-acts`` (K1, K4),
+   counting every kernel's launches with the counts zeroed just before each
+   run.
+5. model: full-width logits at depth 2, batch 1, through the kernels and
+   through their plain versions on the card, from one calibrated state: the
+   approximate ViT, and the published-flag ViT under PACKED and CHAINED
+   from one packed state.
 
 Before the last line it prints one JSON object with each kernel's launches,
 error, times and bound; the last line is
@@ -32,7 +47,6 @@ import json
 import subprocess
 import sys
 import time
-import types
 
 import numpy as np
 import torch
@@ -45,6 +59,8 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 CUDA_CORE_INSTR_PER_S = F32_OPS_PER_S / 2
+# dense bf16 tensor-core peak: the least time for a GEMM's 2MKN operations
+BF16_TC_OPS_PER_S = 989e12
 
 # the flagship approx setting: E3M4 with the D3 compensation table
 FLAGSHIP = dict(expo_width=3, mant_width=4, with_comp=True, dnsmp_factor=3,
@@ -73,6 +89,34 @@ def layer_shapes(batch):
 
 
 LAUNCHES_PER_FORWARD = 74
+# ViT-B/16's dense products (K2 under --fast-mode, K4 under --packed-weights)
+def dense_shapes(batch):
+    return [s for s in layer_shapes(batch) if s[0] != "patch_conv"]
+
+
+DENSE_LAUNCHES_PER_FORWARD = 73
+
+
+# ViT-B/16's bit-ops quantizer launches in one --fast-mode forward at batch
+# B, one per per-tensor act or res site: (name, elements, launches)
+def k1_shapes(batch):
+    return [
+        # the image (224*224*3 = 196*768 values a picture), the patch conv's
+        # result and its site
+        ("patches", 196 * batch * 768, 3),
+        # per block: the two LayerNorm inputs, the q/k/v and attention-output
+        # inputs and results, the context, both residual sites, the
+        # intermediate input and the output result; then the embeddings,
+        # encoder and final LayerNorm sites
+        ("tokens", 197 * batch * 768, 12 * 15 + 3),
+        # per block: the intermediate result and site, the output input
+        ("mlp", 197 * batch * 3072, 12 * 3),
+        ("classifier in", batch * 768, 1),
+        ("classifier out", batch * 1000, 1),
+    ]
+
+
+K1_LAUNCHES_PER_FORWARD = sum(count for _, _, count in k1_shapes(1))
 BATCH = 8
 # the kernel-against-plain check: the four distinct (K, N) of ViT-B/16's
 # approximate products, on a row slice (the plain version holds (rows, K, N))
@@ -93,6 +137,12 @@ PUBLISHED_FLAGS = [
 APPROX_FLAGS = [{"vit_quantized": "vit_quantized_approx",
                  "--no-approx_flag": "--approx_flag"}.get(f, f)
                 for f in PUBLISHED_FLAGS] + ["--withComp", "--with_approx"]
+# the serving modes on the published flags
+SERVING_FLAGS = {
+    "fast": PUBLISHED_FLAGS + ["--fast-mode"],
+    "packed": PUBLISHED_FLAGS + ["--fast-mode", "--packed-weights"],
+    "chained": PUBLISHED_FLAGS + ["--fast-mode", "--packed-weights", "--chained-acts"],
+}
 
 
 def phase(name, msg):
@@ -115,12 +165,19 @@ def grid_operands(m, k, n, device, seed, *, ew=3, mw=4, bias_a=5, bias_b=None):
     return a.to(device), b.to(device), torch.from_numpy(bias_b).to(device)
 
 
+# device clock cycles of the sleep the timed runs queue behind (~50 ms)
+HEAD_START_CYCLES = 100_000_000
+
+
 def cuda_ms(fn, reps):
     """Mean milliseconds of ``fn`` over ``reps`` runs, by CUDA events, after
-    one warm-up run."""
+    one warm-up run. The timed runs queue behind a device sleep, so where
+    the host enqueues them faster than the sleep lasts the events time the
+    device's work and not the host's launch overhead."""
     fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(HEAD_START_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -173,6 +230,23 @@ def check_kernel_against_plain(k3, dev, instr_per_product):
         phase("kernels", f"K3 case {i} {case}: max|d|={err:.3g} ok={ok}")
         if not ok:
             raise SystemExit(f"K3 disagrees with its plain version in case {case}")
+    # every single product of the E2M5 value space under s2nn2s, on result
+    # grids low enough that nonzero products round to zero there: the zero
+    # mask tests the requantized golden, as the JAX CLI's Pallas kernel does
+    from fp8_quantization_tpu_torch.numerics.codec import value_space
+
+    va, vb = value_space(2, 5, 2), value_space(2, 5, 3)
+    a = torch.cat([va, -va[1:]]).reshape(-1, 1).to(dev)
+    b = torch.cat([vb, -vb[1:]]).reshape(1, -1).to(dev)
+    flags = {**FLAGSHIP, "expo_width": 2, "mant_width": 5, "with_s2nn2s_opt": True}
+    for br in (-6, -3, 0):
+        ours = k3.approx_matmul(a, b, 2, 3, br, **flags)
+        plain = k3.approx_matmul_plain(a, b, 2, 3, br, **flags)
+        ok = torch.equal(ours, plain)
+        phase("kernels", f"K3 E2M5 value space x value space, s2nn2s, bias_r {br}: "
+                         f"equal {ok}")
+        if not ok:
+            raise SystemExit("K3 disagrees with its plain version on the s2nn2s zero mask")
     # a site that saw only zeros (the CLI's init forward) has bias +inf: the
     # zero operand's products stay zero and the LUT reads in bounds
     _, b, bb = grid_operands(70, 40, 70, dev, seed=99)
@@ -208,6 +282,255 @@ def check_kernel_against_plain(k3, dev, instr_per_product):
     return worst, totals
 
 
+def k1_inputs(rng, maxval, shape=(257, 129)):
+    """Random values around ``maxval`` with zeros, f32 subnormals, +-maxval,
+    the clip edges and huge values written into the first elements."""
+    x = (rng.normal(size=shape) * maxval).astype(np.float32)
+    edges = np.array([0.0, -0.0, 1e-45, -1e-45, 1e-40, -1e-39, maxval, -maxval,
+                      np.nextafter(np.float32(maxval), np.float32(0)),
+                      np.nextafter(np.float32(maxval), np.float32(np.inf)),
+                      -np.nextafter(np.float32(maxval), np.float32(np.inf)),
+                      3e38, -3e38], np.float32)
+    x.reshape(-1)[:edges.size] = edges
+    return x
+
+
+def check_k1(fm, dev):
+    """K1 against its plain version: equal values (+-0 alike) on every
+    input, per-tensor scalars on the device, sign 0 and 1."""
+    from fp8_quantization_tpu_torch.numerics.fp8_ste import quantize_to_fp8_ste
+
+    rng = np.random.default_rng(7)
+    worst = 0.0
+    for maxval, mant, sign in ((2.75, 4, 1), (2.75, 4, 0), (100.0, 3, 1), (0.02, 5, 1),
+                               (0.0, 4, 1)):
+        x = torch.from_numpy(k1_inputs(rng, maxval or 1.0)).to(dev)
+        bias = quantize_to_fp8_ste(x, 8, torch.tensor([maxval], device=dev), float(mant),
+                                   sign)[1].reshape(())
+        for view in (x, x[:, 1:]):
+            ours = fm.quantize_block(view, torch.tensor(maxval, device=dev), bias, mant, sign)
+            plain = fm.quantize_block_plain(view, maxval, bias, mant, sign)
+            ok = torch.equal(ours, plain)
+            err = float((ours - plain).abs().nan_to_num(0.0).max())
+            worst = max(worst, err)
+            if not ok:
+                raise SystemExit(f"K1 differs from its plain version at maxval {maxval}, "
+                                 f"mant {mant}, sign {sign}")
+        phase("kernels", f"K1 maxval {maxval} mant {mant} sign {sign} (bias "
+                         f"{float(bias)}): equal to plain on {x.numel()} inputs, aligned "
+                         "and not")
+    return worst
+
+
+def sum_tolerance(x_eff, w_eff):
+    """``K * 2^-24 * sum_k |x_k w_k|`` per output element."""
+    return x_eff.shape[1] * 2.0 ** -24 * (x_eff.double().abs() @ w_eff.double().abs())
+
+
+def gemm_operands(m, k, n, dev, seed, mant=4):
+    """x: (M, K) f32 of unit scale; the grid (K, N) weights of a calibrated
+    per-channel E3M4 quantizer, some rows tiny (subnormal codes), with their
+    per-column biases."""
+    from fp8_quantization_tpu_torch.numerics.fp8_ste import quantize_to_fp8_ste
+
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(dev)
+    w = rng.normal(size=(k, n)).astype(np.float32) * np.float32(k ** -0.5)
+    w[: k // 8] *= 1e-4
+    w = torch.from_numpy(w).to(dev)
+    wq, bias = quantize_to_fp8_ste(w, 8, w.abs().amax(dim=0, keepdim=True), float(mant), 1)
+    return x, wq, bias.reshape(-1)
+
+
+def check_gemms(fm, dm, dev):
+    """K2 and K4 against their plain versions in every switch combination:
+    per element ``|d| <= K * 2^-24 * sum_k |x_k w_k|`` (both sum the exact
+    bf16 products in ascending k, so they should be equal). Returns the
+    worst |d| of each."""
+    from fp8_quantization_tpu_torch.numerics.codec import pack_exmy
+
+    worst = {"K2": 0.0, "K4": 0.0}
+    act, res = (4.0, 4, 4, 1), (8.0, 8, 4, 1)
+
+    def check(name, ours, plain, x_eff, w_eff, what):
+        err = (ours.float() - plain.float()).abs()
+        ok = (bool((err.double() <= sum_tolerance(x_eff, w_eff)).all())
+              and bool(torch.isfinite(ours.float()).all()) and ours.dtype == plain.dtype)
+        worst[name] = max(worst[name], float(err.max()))
+        if not ok:
+            raise SystemExit(f"{name} disagrees with its plain version: {what}")
+
+    for m, k, n in [(SLICE_ROWS, k, n) for k, n in SLICE_SHAPES] + [(13, 70, 29)]:
+        x, wq, bias = gemm_operands(m, k, n, dev, seed=m + k + n)
+        w16 = wq.to(torch.bfloat16)
+        xq = fm.quantize_block_plain(x, *act)
+        for quantize_x in (True, False):
+            xin = x if quantize_x else xq.to(torch.bfloat16)
+            for requant in (False, True):
+                for out in (torch.float32, torch.bfloat16):
+                    kw = dict(quantize_x=quantize_x, requantize_out=requant, out_dtype=out)
+                    check("K2", fm.fused_quant_matmul(xin, w16, act, res, **kw),
+                          fm.fused_quant_matmul_plain(xin, w16, act, res, **kw),
+                          xq, wq, f"{m}x{k}x{n} {kw}")
+        pw = dm.pack_weights(wq, bias, 3, 4)
+        w_eff = dm.unpack_weights(pw)
+        codes = pack_exmy(xq, 3, 4, 3, clip_of=True)
+        forms = [("bf16 x", xq.to(torch.bfloat16), {}, xq),
+                 ("f32 x quantized", x, dict(quantize_x=True, act_params=act), xq),
+                 ("f32 x", x, {}, x.to(torch.bfloat16).float()),
+                 ("coded x", codes, dict(x_bias=3, x_expo=3, x_mant=4), xq)]
+        for what, xin, xkw, x_eff in forms:
+            for requant in (False, True):
+                for out in (torch.float32, torch.bfloat16):
+                    kw = dict(expo_width=3, mant_width=4, res_params=res,
+                              requantize_out=requant, out_dtype=out, **xkw)
+                    check("K4", dm.dequant_matmul(xin, pw.codes, pw.bias, **kw),
+                          dm.dequant_matmul_plain(xin, pw.codes, pw.bias, **kw),
+                          x_eff, w_eff, f"{m}x{k}x{n} {what} requant={requant} {out}")
+        phase("kernels", f"K2 (8 switch cases) and K4 (16) at {m}x{k}x{n}: within "
+                         f"K*2^-24*sum|xw| of plain; worst |d| so far K2 {worst['K2']:.3g}, "
+                         f"K4 {worst['K4']:.3g}")
+    return worst
+
+
+def _bound(nbytes, ops):
+    bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / BF16_TC_OPS_PER_S
+    return bytes_ms, ops_ms
+
+
+def _add(totals, count, **ms):
+    for key, value in ms.items():
+        totals[key] = totals.get(key, 0.0) + count * value
+
+
+def _finish(totals):
+    totals["bound_ms"] = max(totals["bytes_ms"], totals["ops_ms"])
+    totals["bound_by"] = "operations" if totals["ops_ms"] >= totals["bytes_ms"] else "bytes"
+    return totals
+
+
+def _timed_against_plain(name, kernel, plain, x_eff, w_eff, worst, plain_reps=1):
+    """One more check of a kernel against its plain version, at a main-path
+    shape: equal values (K1) or ``|d| <= K * 2^-24 * sum_k |x_k w_k|`` (the
+    GEMMs). Returns (kernel ms, plain ms)."""
+    ours, ref = kernel(), plain()
+    if w_eff is None:
+        ok = torch.equal(ours, ref)
+    else:
+        err = (ours.float() - ref.float()).abs()
+        ok = (bool((err.double() <= sum_tolerance(x_eff, w_eff)).all())
+              and bool(torch.isfinite(ours.float()).all()))
+    worst[name] = max(worst[name], float((ours.float() - ref.float()).abs()
+                                         .nan_to_num(0.0).max()))
+    if not ok:
+        raise SystemExit(f"{name} disagrees with its plain version at a main-path shape")
+    del ours, ref
+    return cuda_ms(kernel, 5), cuda_ms(plain, plain_reps)
+
+
+def time_serving_kernels(fm, dm, dev, worst):
+    """K1, K2 and K4 per batch-8 forward, each at the shapes and in the
+    configuration the main path launches it (K1 at every size of
+    :func:`k1_shapes`; K2 on bf16 x; K4 on bf16 x as ``--packed-weights``
+    and on coded x as ``--chained-acts`` runs it): held against its plain
+    version once more (``worst`` takes the errors), then timed: kernel
+    (CUDA events, mean of 5 after a warm-up), plain version, cuBLAS on the
+    same bf16 operands (K2, K4; weights pre-decoded for K4) and the bound:
+    the larger of the bytes over HBM bandwidth and 2MKN over the bf16
+    tensor-core peak."""
+    from fp8_quantization_tpu_torch.numerics.codec import pack_exmy, unpack_exmy
+
+    rng = np.random.default_rng(11)
+    # frozen per-tensor scalars on the device, as a calibrated site hands them
+    args = (torch.tensor(3.0, device=dev),
+            *(torch.tensor(v, dtype=torch.int32, device=dev) for v in (5, 4, 1)))
+    k1 = {}
+    for name, numel, count in k1_shapes(BATCH):
+        x = torch.from_numpy(k1_inputs(rng, 3.0, shape=(numel,))).to(dev)
+        ms, plain_ms = _timed_against_plain(
+            "K1", lambda: fm.quantize_block(x, *args),
+            lambda: fm.quantize_block_plain(x, *args), None, None, worst, plain_reps=5)
+        bytes_ms, ops_ms = _bound(8 * numel, 0)
+        _add(k1, count, ms=ms, plain_ms=plain_ms, bytes_ms=bytes_ms, ops_ms=ops_ms)
+        phase("kernels", f"K1 {name} {numel} elements x{count}/forward: equal to plain; "
+                         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bytes_ms:.4f} ms")
+    out = {"K1": _finish({**k1, "library_ms": None})}
+    k2, k4, k4c = {}, {}, {}
+    act = (4.0, 4, 4, 1)
+    for name, m, k, n, count in dense_shapes(BATCH):
+        x, wq, bias = gemm_operands(m, k, n, dev, seed=m + k + n)
+        xq = fm.quantize_block_plain(x, *act)
+        x16 = xq.to(torch.bfloat16)
+        w16 = wq.to(torch.bfloat16)
+        shape = f"{name} {m}x{k}x{n} x{count}/forward"
+        ms, plain_ms = _timed_against_plain(
+            "K2", lambda: fm.fused_quant_matmul(x16, w16, quantize_x=False),
+            lambda: fm.fused_quant_matmul_plain(x16, w16, quantize_x=False), xq, wq, worst)
+        lib_ms = cuda_ms(lambda: torch.matmul(x16, w16), 5)
+        bytes_ms, ops_ms = _bound(2 * m * k + 2 * k * n + 4 * m * n, 2 * m * k * n)
+        _add(k2, count, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bytes_ms=bytes_ms,
+             ops_ms=ops_ms)
+        phase("kernels", f"K2 {shape}: within K*2^-24*sum|xw| of plain; kernel {ms:.4f} ms, "
+                         f"plain {plain_ms:.4f} ms, cuBLAS {lib_ms:.4f} ms, bound "
+                         f"{max(bytes_ms, ops_ms):.4f} ms "
+                         f"({2 * m * k * n / ms / 1e9:.4g} TFLOP/s)")
+        pw = dm.pack_weights(wq, bias, 3, 4)
+        w_eff = dm.unpack_weights(pw)
+        wd16 = w_eff.to(torch.bfloat16)
+        lib_ms = cuda_ms(lambda: torch.matmul(x16, wd16), 5)
+        kw = dict(expo_width=3, mant_width=4)
+        ms, plain_ms = _timed_against_plain(
+            "K4", lambda: dm.dequant_matmul(x16, pw.codes, pw.bias, **kw),
+            lambda: dm.dequant_matmul_plain(x16, pw.codes, pw.bias, **kw), xq, w_eff, worst)
+        bytes_ms, ops_ms = _bound(2 * m * k + k * n + 4 * n + 4 * m * n, 2 * m * k * n)
+        _add(k4, count, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bytes_ms=bytes_ms,
+             ops_ms=ops_ms)
+        # coded x with its packing bias on the device, as CodedFP carries it
+        x_bias = torch.tensor(4, dtype=torch.int32, device=dev)
+        xc = pack_exmy(xq, 3, 4, x_bias, clip_of=True)
+        ckw = dict(x_bias=x_bias, x_expo=3, x_mant=4, **kw)
+        coded_ms, coded_plain_ms = _timed_against_plain(
+            "K4", lambda: dm.dequant_matmul(xc, pw.codes, pw.bias, **ckw),
+            lambda: dm.dequant_matmul_plain(xc, pw.codes, pw.bias, **ckw),
+            unpack_exmy(xc, 3, 4, x_bias), w_eff, worst)
+        bytes_ms, ops_ms = _bound(m * k + k * n + 4 * n + 4 * m * n, 2 * m * k * n)
+        _add(k4c, count, ms=coded_ms, plain_ms=coded_plain_ms, library_ms=lib_ms,
+             bytes_ms=bytes_ms, ops_ms=ops_ms)
+        phase("kernels", f"K4 {shape}: within K*2^-24*sum|xw| of plain on bf16 and on "
+                         f"coded x; kernel {ms:.4f} ms (coded x {coded_ms:.4f} ms), plain "
+                         f"{plain_ms:.4f} ms (coded x {coded_plain_ms:.4f} ms), cuBLAS "
+                         f"{lib_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms")
+    out["K2"], out["K4"], out["K4 coded x"] = _finish(k2), _finish(k4), _finish(k4c)
+    return out
+
+
+def zero_counts(counters):
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def read_counts(counters):
+    return {name: fn.launches for name, fn in counters.items()}
+
+
+def run_serving(cli, counters, mode):
+    """One serving-mode ``validate-quantized`` run, counts zeroed just
+    before it. Returns (out, ms/img, counts)."""
+    zero_counts(counters)
+    out, ms = run_cli(cli, SERVING_FLAGS[mode])
+    counts = read_counts(counters)
+    phase("main", f"vit_quantized --{mode}: {out['metrics']}, {ms:.2f} ms/img over "
+                  f"{out['images']} images, launches {counts}, result {out['result_file']}")
+    evals = 2
+    ok = (np.isfinite(out["metrics"]["loss"]) and counts["K3"] == 0 and counts["K1"] > 0
+          and counts["K4"] == (0 if mode == "fast" else DENSE_LAUNCHES_PER_FORWARD * evals)
+          and (mode != "fast" or (counts["K2"] == DENSE_LAUNCHES_PER_FORWARD * evals
+                                  and counts["K1"] == K1_LAUNCHES_PER_FORWARD * evals)))
+    if not ok:
+        raise SystemExit(f"--{mode} validate-quantized: wrong launch counts or bad metrics")
+    return out, ms, counts
+
+
 def run_cli(cli, argv):
     args = cli.build_parser().parse_args(argv)
     out = cli.run_validate(args)
@@ -216,25 +539,46 @@ def run_cli(cli, argv):
 
 
 @contextlib.contextmanager
-def plain_approx_products(layers_mod, k3):
-    """Route the layers' approximate products to the plain version."""
-    saved = layers_mod.k3
-    layers_mod.k3 = types.SimpleNamespace(approx_matmul=k3.approx_matmul_plain)
+def plain_kernels():
+    """Route the layers', sites' and fast path's kernels to their plain
+    versions: each caller looks the wrapper up on its kernel module."""
+    from fp8_quantization_tpu_torch.ops.cuda import approx_matmul as k3
+    from fp8_quantization_tpu_torch.ops.cuda import dequant_matmul as dm
+    from fp8_quantization_tpu_torch.ops.cuda import fused_matmul as fm
+
+    swaps = [(fm, "quantize_block"), (fm, "fused_quant_matmul"), (k3, "approx_matmul"),
+             (dm, "dequant_matmul")]
+    saved = [getattr(mod, name) for mod, name in swaps]
+    for mod, name in swaps:
+        setattr(mod, name, getattr(mod, name + "_plain"))
     try:
         yield
     finally:
-        layers_mod.k3 = saved
+        for (mod, name), fn in zip(swaps, saved):
+            setattr(mod, name, fn)
 
 
-def check_model(cli, argv, dev, spec):
-    """Phase 5: logits of the approximate ViT through the kernel and through
-    its plain version, from one calibrated state."""
+def compare_logits(name, logits, plain_logits, spec):
+    """Equal top-1 and ``max|d| <= 1e-5 * max(1, max|logit|)``."""
+    logits, plain_logits = logits.float(), plain_logits.float()
+    diff = float((logits - plain_logits).abs().max())
+    scale = float(plain_logits.abs().max())
+    same_top1 = bool((logits.argmax(-1) == plain_logits.argmax(-1)).all())
+    ok = (tuple(logits.shape) == (1, spec.num_classes)
+          and bool(torch.isfinite(logits).all())
+          and diff <= 1e-5 * max(1.0, scale) and same_top1)
+    phase("model", f"{name}, width {spec.hidden_size}, depth {spec.num_layers}, batch 1: "
+                   f"max|kernel - plain| = {diff:.3g} (max|logit| {scale:.3g}), "
+                   f"same top-1 {same_top1}, ok={ok}")
+    if not ok:
+        raise SystemExit(f"{name}: whole-model logits through the kernels and their "
+                         "plain versions disagree")
+
+
+def calibrated_model(cli, argv, dev, spec):
     from fp8_quantization_tpu_torch.eval.data import synthetic_batches
     from fp8_quantization_tpu_torch.eval.driver import calibrate
     from fp8_quantization_tpu_torch.models.vit import QuantizedViT
-    from fp8_quantization_tpu_torch.ops import layers as layers_mod
-    from fp8_quantization_tpu_torch.ops.cuda import approx_matmul as k3
-    from fp8_quantization_tpu_torch.quant.sites import FIXED
 
     qc = cli.config_from_args(cli.build_parser().parse_args(argv))
     model = QuantizedViT(qc=qc, spec=spec,
@@ -242,25 +586,52 @@ def check_model(cli, argv, dev, spec):
     (x, _), = synthetic_batches(1, 1, image_size=spec.image_size,
                                 num_classes=spec.num_classes, seed=3)
     calibrate(model, [x], num_est_batches=1)
-    xt = torch.from_numpy(x).to(dev)
+    return model, qc, torch.from_numpy(x).to(dev)
+
+
+def check_model(cli, argv, dev, spec):
+    """Phase 5: logits of the approximate ViT through K3 and through its
+    plain version, from one calibrated state."""
+    from fp8_quantization_tpu_torch.quant.sites import FIXED
+
+    model, _, xt = calibrated_model(cli, argv, dev, spec)
     with torch.no_grad():
         logits = model(xt, FIXED)
-        with plain_approx_products(layers_mod, k3):
+        with plain_kernels():
             plain_logits = model(xt, FIXED)
-    diff = float((logits - plain_logits).abs().max())
-    scale = float(plain_logits.abs().max())
     # every approximate partial product is requantized onto the result grid,
     # so each is a multiple of 2^(1 - bias_r - M) and the f32 sums over K are
     # exact in any order at these magnitudes: the two agree to rounding
-    same_top1 = bool((logits.argmax(-1) == plain_logits.argmax(-1)).all())
-    ok = (tuple(logits.shape) == (1, spec.num_classes)
-          and bool(torch.isfinite(logits).all())
-          and diff <= 1e-5 * max(1.0, scale) and same_top1)
-    phase("model", f"width {spec.hidden_size}, depth {spec.num_layers}, batch 1: "
-                   f"max|kernel - plain| = {diff:.3g} (max|logit| {scale:.3g}), "
-                   f"same top-1 {same_top1}, ok={ok}")
-    if not ok:
-        raise SystemExit("whole-model logits through K3 and its plain version disagree")
+    compare_logits("approx FIXED", logits, plain_logits, spec)
+
+
+def check_serving_model(cli, dev, spec, counters):
+    """Phase 5: the published-flag ViT calibrated, cached and packed once,
+    then PACKED and CHAINED logits through the kernels (K1, K4) and through
+    their plain versions. Both sum the exact bf16 products in ascending k,
+    so they agree to the last bit."""
+    from fp8_quantization_tpu_torch.eval.driver import cache_quantized_weights
+    from fp8_quantization_tpu_torch.ops.fastpath import pack_dense_caches
+    from fp8_quantization_tpu_torch.quant.sites import CHAINED, PACKED
+
+    model, qc, xt = calibrated_model(cli, PUBLISHED_FLAGS, dev, spec)
+    size = spec.image_size
+    cache_quantized_weights(model, torch.zeros((1, size, size, 3), device=dev), fast=True)
+    _, report = pack_dense_caches(model, qc)
+    dense = 6 * spec.num_layers + 1
+    phase("model", f"packed {len(report)} layers, bit-exact channel fraction "
+                   f"{min(report.values()):.3f}..{max(report.values()):.3f}")
+    for name, qp in (("PACKED", PACKED), ("CHAINED", CHAINED)):
+        with torch.no_grad():
+            zero_counts(counters)
+            logits = model(xt, qp)
+            counts = read_counts(counters)
+            with plain_kernels():
+                plain_logits = model(xt, qp)
+        if counts["K4"] != dense or counts["K1"] == 0 or read_counts(counters) != counts:
+            raise SystemExit(f"{name}: launches {counts} (expected K4 {dense}, some K1; "
+                             "none from the plain versions)")
+        compare_logits(f"{name} (launches {counts})", logits, plain_logits, spec)
 
 
 def main() -> int:
@@ -269,8 +640,11 @@ def main() -> int:
         return 1
     from fp8_quantization_tpu_torch import cli
     from fp8_quantization_tpu_torch.models.vit import VIT_B_16
+    from fp8_quantization_tpu_torch.ops.cuda import KERNELS
     from fp8_quantization_tpu_torch.ops.cuda import approx_matmul as k3
     from fp8_quantization_tpu_torch.ops.cuda import build, sass_mix
+    from fp8_quantization_tpu_torch.ops.cuda import dequant_matmul as dm
+    from fp8_quantization_tpu_torch.ops.cuda import fused_matmul as fm
 
     # full-f32 products and convolutions (TF32 would leave the grid)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -301,46 +675,73 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     max_err, k3_times = check_kernel_against_plain(k3, dev, mix["instructions_per_product"])
+    gemm_err = check_gemms(fm, dm, dev)
+    gemm_err["K1"] = check_k1(fm, dev)
 
-    # 4. the main path
-    k3.approx_matmul.launches = 0
+    # 4. the main path: each run with every launch count zeroed just before
+    counters = KERNELS
+    zero_counts(counters)
     out, approx_ms = run_cli(cli, APPROX_FLAGS)
-    launches = k3.approx_matmul.launches
+    approx_counts = read_counts(counters)
     # the CLI's init forward (a zeros batch of one), one calibration batch
     # and two eval batches
     expected = LAUNCHES_PER_FORWARD * (1 + 1 + 2)
     phase("main", f"vit_quantized_approx: {out['metrics']}, {approx_ms:.2f} ms/img over "
-                  f"{out['images']} images, K3 launches {launches} (expected {expected}), "
-                  f"result {out['result_file']}")
-    if launches != expected or not np.isfinite(out["metrics"]["loss"]):
+                  f"{out['images']} images, launches {approx_counts} (K3 expected "
+                  f"{expected}), result {out['result_file']}")
+    if approx_counts["K3"] != expected or not np.isfinite(out["metrics"]["loss"]):
         raise SystemExit("approx validate-quantized: wrong launch count or bad metrics")
-    k3.approx_matmul.launches = 0
+    zero_counts(counters)
     out_pub, pub_ms = run_cli(cli, PUBLISHED_FLAGS)
+    pub_counts = read_counts(counters)
     phase("main", f"vit_quantized (published flags): {out_pub['metrics']}, "
                   f"{pub_ms:.2f} ms/img over {out_pub['images']} images, "
-                  f"K3 launches {k3.approx_matmul.launches}, result {out_pub['result_file']}")
-    if k3.approx_matmul.launches != 0 or not np.isfinite(out_pub["metrics"]["loss"]):
-        raise SystemExit("published validate-quantized launched K3 or gave bad metrics")
+                  f"launches {pub_counts}, result {out_pub['result_file']}")
+    if any(pub_counts.values()) or not np.isfinite(out_pub["metrics"]["loss"]):
+        raise SystemExit("published validate-quantized launched a kernel or gave bad metrics")
+    serving = {mode: run_serving(cli, counters, mode) for mode in SERVING_FLAGS}
 
-    # 5. whole-model check at full width, depth 2, batch 1
-    check_model(cli, APPROX_FLAGS, dev, dataclasses.replace(VIT_B_16, num_layers=2))
+    # K1, K2 and K4 checked and timed at the shapes of one batch-8 forward
+    times = time_serving_kernels(fm, dm, dev, gemm_err)
+    times["K3"] = k3_times
 
+    # 5. whole-model checks at full width, depth 2, batch 1
+    depth2 = dataclasses.replace(VIT_B_16, num_layers=2)
+    check_model(cli, APPROX_FLAGS, dev, depth2)
+    check_serving_model(cli, dev, depth2, counters)
+
+    # launches: each kernel's count in the main-path run that drives it in
+    # the configuration timed above (K4: bf16 x, as --packed-weights runs it)
+    kernels = [
+        ("quantize_block", "K1", "fused_matmul.cu", "fused_matmul.py:39",
+         serving["fast"][2]["K1"], gemm_err["K1"]),
+        ("fused_quant_matmul", "K2", "fused_matmul.cu", "fused_matmul.py:115",
+         serving["fast"][2]["K2"], gemm_err["K2"]),
+        ("approx_matmul", "K3", "approx_matmul.cu", "approx_matmul.py:248",
+         approx_counts["K3"], max_err),
+        ("dequant_matmul", "K4", "dequant_matmul.cu", "dequant_matmul.py:269",
+         serving["packed"][2]["K4"], gemm_err["K4"]),
+    ]
     record = {"kernels": [{
-        "name": "approx_matmul",
+        "name": name,
         "route": "cuda",
-        "source": "fp8_quantization_tpu_torch/csrc/approx_matmul.cu",
-        "replaces": "fp8_quantization_tpu/ops/pallas/approx_matmul.py:248",
+        "source": f"fp8_quantization_tpu_torch/csrc/{src}",
+        "replaces": f"fp8_quantization_tpu/ops/pallas/{tpu}",
         "launches": launches,
-        "max_abs_err": max_err,
-        "ms": k3_times["ms"],
-        "plain_ms": k3_times["plain_ms"],
-        "bound_ms": k3_times["bound_ms"],
-        "bound_by": k3_times["bound_by"],
-        "library_ms": None,
-    }]}
-    phase("done", f"approx ms/img {approx_ms:.2f}, published ms/img {pub_ms:.2f}; "
-                  f"K3 per batch-{BATCH} forward: kernel {k3_times['ms']:.2f} ms, "
-                  f"plain {k3_times['plain_ms']:.2f} ms, bound {k3_times['bound_ms']:.2f} ms; "
+        "max_abs_err": err,
+        "ms": times[key]["ms"],
+        "plain_ms": times[key]["plain_ms"],
+        "bound_ms": times[key]["bound_ms"],
+        "bound_by": times[key]["bound_by"],
+        "library_ms": times[key].get("library_ms"),
+    } for name, key, src, tpu, launches, err in kernels]}
+    per_forward = "; ".join(
+        f"{key} {t['ms']:.3f} ms (plain {t['plain_ms']:.3f}, bound {t['bound_ms']:.3f}"
+        + (f", cuBLAS {t['library_ms']:.3f}" if t.get("library_ms") is not None else "")
+        + ")" for key, t in sorted(times.items()))
+    phase("done", f"ms/img: approx {approx_ms:.2f}, published {pub_ms:.2f}, "
+                  + ", ".join(f"{mode} {serving[mode][1]:.2f}" for mode in SERVING_FLAGS)
+                  + f"; per batch-{BATCH} forward: {per_forward}; "
                   f"{time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -7,10 +7,12 @@ flag sets (``scripts/image_net.sh``) run unchanged:
         --architecture vit_quantized_approx --synthetic-data ... \\
         --approx_flag --withComp --with_approx
 
-This slice runs ``vit_quantized`` and ``vit_quantized_approx`` on seeded
-random weights and synthetic data; other architectures, checkpoints and the
-ImageNet loaders raise. ``--cuda`` (the default) runs on the GPU and raises
-when there is none; ``--no-cuda`` runs on the CPU.
+The port runs ``vit_quantized`` and ``vit_quantized_approx`` on seeded
+random weights and synthetic data, in the fixed phase and in the serving
+modes ``--fast-mode``, ``--packed-weights`` and ``--chained-acts``; other
+architectures, checkpoints and the ImageNet loaders raise. ``--cuda`` (the
+default) runs on the GPU and raises when there is none; ``--no-cuda`` runs
+on the CPU.
 """
 
 from __future__ import annotations
@@ -248,8 +250,6 @@ def _reject_unported(args):
         "--model-dir": args.model_dir,
         "--images-dir (ImageNet loaders)": args.images_dir and not args.synthetic_data,
         "--save-checkpoint-dir": args.save_checkpoint_dir,
-        "--fast-mode / --packed-weights / --chained-acts":
-            args.fast_mode or args.packed_weights or args.chained_acts,
         "--reestimate-bn-batches": args.reestimate_bn_batches,
         "--mesh-data / --mesh-model": args.mesh_data * args.mesh_model > 1,
     }
@@ -264,8 +264,9 @@ def sync(device: torch.device):
 
 
 def setup(args):
-    """(model, device, qc): the device, the configuration and the model with
-    its init forward done, as ``validate-quantized`` starts."""
+    """(model, device, qc, example): the device, the configuration, the model
+    with its init forward done and the zeros example batch it was done on,
+    as ``validate-quantized`` starts."""
     from .quant.sites import ESTIMATE
 
     _reject_unported(args)
@@ -283,7 +284,7 @@ def setup(args):
     # state; the port does the same so both calibrate from the same state
     with torch.no_grad():
         model(example, ESTIMATE)
-    return model, device, qc
+    return model, device, qc, example
 
 
 def make_batches(args, model, max_batches=None):
@@ -304,7 +305,7 @@ def run_validate(args) -> dict:
     from .eval.driver import validate_quantized, write_result_file
 
     t0 = time.perf_counter()
-    model, device, qc = setup(args)
+    model, device, qc, example = setup(args)
     sync(device)
     t1 = time.perf_counter()
 
@@ -319,7 +320,9 @@ def run_validate(args) -> dict:
     t2 = time.perf_counter()
     metrics, _ = validate_quantized(
         model, calib, eval_batches, num_est_batches=args.num_est_batches,
-        quant_w=args.weight_quant, quant_a=args.act_quant)
+        quant_w=args.weight_quant, quant_a=args.act_quant, fast=args.fast_mode,
+        packed=args.packed_weights, chained=args.chained_acts, qc=qc,
+        calib_example=example)
     sync(device)
     t3 = time.perf_counter()
 

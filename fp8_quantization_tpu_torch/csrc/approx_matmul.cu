@@ -10,7 +10,9 @@
 //   out      = both operands and golden normal ? approx : golden
 //              (with_s2nn2s_opt: subnormal operands are scaled up by 2^M
 //               before decomposition, the product scaled back down, and a
-//               zero raw product stays zero)
+//               product whose golden is zero stays zero, as in the Pallas
+//               kernel: a nonzero product that rounds to zero on the
+//               result grid stays zero too)
 //   acc     += out, requantized onto ExMy(bias_r)                 [quant_btw]
 //
 // What bounds it: CUDA-core instruction issue. Every product is some tens
@@ -204,10 +206,10 @@ approx_matmul_kernel(const float* __restrict__ A, const float* __restrict__ B,
           float approx = mp * sign * pow2i(ae[i] + bexp[j]);
           float out;
           if (S2NN2S) {
-            // the plain version masks zero RAW products (before requant)
+            // the zero mask tests the golden after its requantization
             if (asub[i]) approx = approx * s;
             if (bsub[j]) approx = approx * s;
-            out = raw == 0.f ? 0.f : approx;
+            out = golden == 0.f ? 0.f : approx;
           } else {
             const bool normal = ae[i] > 0 && be[j] > 0 && fabsf(golden) >= min_norm_r;
             out = normal ? approx : golden;

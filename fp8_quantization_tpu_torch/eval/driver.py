@@ -2,7 +2,10 @@
 
 The JAX package threads the ``quant`` / ``quant_est`` collections through
 jitted steps; here the QuantSites update their buffers in place during the
-``ESTIMATE`` forwards, and ``FIXED`` forwards read them frozen.
+``ESTIMATE`` forwards, and ``FIXED`` forwards read them frozen. The serving
+phases (``fast``, ``packed``, ``chained``) first cache the frozen weights
+(``cache_quantized_weights``) and pack them to 1-byte codes
+(``ops.fastpath.pack_dense_caches``), in place on the model.
 """
 
 from __future__ import annotations
@@ -47,10 +50,25 @@ def calibrate(model, batches: Iterable[Any], *, num_est_batches: Optional[int] =
 
 
 @torch.no_grad()
+def cache_quantized_weights(model, example, *, quant_a: bool = True,
+                            fast: bool = False):
+    """Store the frozen quantized weights in each layer's cache (one
+    forward of ``example``); fixed-phase forwards then skip the weight
+    quantization. ``fast=True`` stores them bfloat16 (lossless for the
+    grid) for the fast serving modes. Returns the model."""
+    qp = QuantPhase(phase="fixed", quant_a=quant_a, cache_weights=True, fast=fast)
+    model(_as_input(example, _device(model)), qp)
+    return model
+
+
+@torch.no_grad()
 def evaluate(model, batches: Iterable[Batch], *, quant_w: bool = True,
              quant_a: bool = True, fast: bool = False, packed: bool = False,
              chained: bool = False, topk: int = 5) -> Dict[str, float]:
-    """``FIXED``-phase eval loop with accumulator metrics."""
+    """``FIXED``-phase eval loop with accumulator metrics. ``fast``,
+    ``packed`` and ``chained`` select the serving phase (see
+    ``quant.sites.QuantPhase``); ``packed`` needs the packed codes of
+    :func:`validate_quantized`."""
     qp = QuantPhase(phase="fixed", quant_w=quant_w, quant_a=quant_a, fast=fast,
                     packed=packed, chained=chained)
     dev = _device(model)
@@ -72,17 +90,27 @@ def validate_quantized(
     fast: bool = False,
     packed: bool = False,
     chained: bool = False,
+    qc=None,
+    calib_example=None,
     bn_reestimate_batches: Optional[Iterable[Any]] = None,
 ) -> Tuple[Dict[str, float], Any]:
-    """The validate-quantized pipeline. Returns (final_metrics, calibrated
-    model)."""
+    """The validate-quantized pipeline. ``packed=True`` (needs ``qc`` and
+    ``calib_example``) freezes the quantized weights and installs 1-byte
+    codes before evaluating under the packed phase. Returns
+    (final_metrics, calibrated model)."""
     if bn_reestimate_batches is not None:
         raise NotImplementedError(f"BN re-estimation {_LATER}")
-    if packed or chained or fast:
-        raise NotImplementedError(f"fast / packed / chained evaluation {_LATER}")
     calibrate(model, calib_batches, num_est_batches=num_est_batches,
               quant_w=quant_w, quant_a=quant_a)
-    metrics = evaluate(model, eval_batches, quant_w=quant_w, quant_a=quant_a)
+    if packed:
+        if qc is None or calib_example is None:
+            raise ValueError("packed eval needs qc and calib_example")
+        from ..ops.fastpath import pack_dense_caches
+
+        cache_quantized_weights(model, calib_example, quant_a=quant_a, fast=fast)
+        pack_dense_caches(model, qc)
+    metrics = evaluate(model, eval_batches, quant_w=quant_w, quant_a=quant_a,
+                       fast=fast, packed=packed, chained=chained)
     return metrics, model
 
 

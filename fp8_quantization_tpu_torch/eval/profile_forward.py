@@ -1,18 +1,21 @@
-"""Time and profile the FIXED forward of the model ``validate-quantized`` builds.
+"""Time and profile one forward of the model ``validate-quantized`` builds.
 
     python -m fp8_quantization_tpu_torch.eval.profile_forward [--reps N] \\
         validate-quantized --architecture vit_quantized_approx --synthetic-data ...
 
 Takes the CLI's own arguments, builds and calibrates the model as
 ``validate-quantized`` does (seeded weights, the init forward, the first
-synthetic batch), then on the GPU:
+synthetic batch; with ``--packed-weights`` also the weight cache and the
+1-byte codes), then on the GPU, in the phase the serving flags select
+(``FIXED``, or ``--fast-mode`` / ``--packed-weights`` / ``--chained-acts``):
 
-* times ``--reps`` FIXED forwards of that batch after one warm-up, each ended
-  by a synchronize (host clock);
-* profiles one more FIXED forward with ``torch.profiler``: device time by
-  kernel, summed, and its share of the forward's wall time (the device's
-  busy share; one stream, so kernels do not overlap);
-* counts K3 launches per forward.
+* times ``--reps`` forwards of that batch after one warm-up, each ended by a
+  synchronize (host clock);
+* profiles one more forward with ``torch.profiler``: device time by kernel,
+  summed, and its share of the forward's wall time (the device's busy
+  share; one stream, so kernels do not overlap);
+* counts each kernel's launches per forward (K1 ``quantize_block``, K2
+  ``fused_quant_matmul``, K3 ``approx_matmul``, K4 ``dequant_matmul``).
 
 Prints one JSON object. Needs a GPU and raises without one.
 """
@@ -28,18 +31,23 @@ import time
 import torch
 
 from .. import cli
-from ..ops.cuda import approx_matmul as k3
-from ..quant.sites import FIXED
-from .driver import calibrate
+from ..ops.cuda import KERNELS
+from ..ops.fastpath import pack_dense_caches
+from ..quant.sites import QuantPhase
+from .driver import cache_quantized_weights, calibrate
 
 
-def profile_forward(model, x, top: int):
+def _counts():
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def profile_forward(model, x, qp, top: int):
     """(wall ms, device ms, [(kernel, ms, calls)] of the ``top`` heaviest)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model(x, FIXED)
+        model(x, qp)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     kernels = [e for e in prof.key_averages()
@@ -63,29 +71,35 @@ def main(argv=None):
     if not args.cuda or not torch.cuda.is_available():
         raise RuntimeError("profile_forward measures the GPU: it needs --cuda and a GPU")
 
-    model, device, _ = cli.setup(args)
+    model, device, qc, example = cli.setup(args)
     (x, _), = cli.make_batches(args, model, 1)
     calibrate(model, [x], num_est_batches=1)
+    if args.packed_weights:
+        cache_quantized_weights(model, example, fast=args.fast_mode)
+        pack_dense_caches(model, qc)
+    qp = QuantPhase(fast=args.fast_mode, packed=args.packed_weights,
+                    chained=args.chained_acts)
     xt = torch.from_numpy(x).to(device)
-    model(xt, FIXED)
+    model(xt, qp)
     cli.sync(device)
 
     times, launches = [], []
     for _ in range(ns.reps):
-        before = k3.approx_matmul.launches
+        before = _counts()
         t0 = time.perf_counter()
-        model(xt, FIXED)
+        model(xt, qp)
         cli.sync(device)
         times.append(1e3 * (time.perf_counter() - t0))
-        launches.append(k3.approx_matmul.launches - before)
-    wall_ms, device_ms, top = profile_forward(model, xt, ns.top)
+        launches.append({k: v - before[k] for k, v in _counts().items()})
+    wall_ms, device_ms, top = profile_forward(model, xt, qp, ns.top)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     print(json.dumps({
         "card": smi, "architecture": args.architecture, "batch": args.batch_size,
+        "phase": {"fast": qp.fast, "packed": qp.packed, "chained": qp.chained},
         "ms_per_forward": times, "ms_per_img_median": statistics.median(times) / args.batch_size,
-        "k3_launches_per_forward": launches,
+        "launches_per_forward": launches,
         "profiled": {"wall_ms": wall_ms, "device_ms": device_ms,
                      "busy_share": device_ms / wall_ms,
                      "top_kernels": [{"kernel": k, "ms": ms, "calls": n} for k, ms, n in top]},

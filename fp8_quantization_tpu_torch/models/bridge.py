@@ -6,7 +6,9 @@ nested dicts of numpy arrays, into a ``state_dict`` for the counterpart
 module here. The layouts already agree (``(in, out)`` dense kernels,
 ``(*K, I, O)`` conv kernels), so the bridge is a rename: flax paths joined
 with dots, with the per-site ``q`` / ``est`` dict levels dropped, because a
-QuantSite keeps both states as its own buffers.
+QuantSite keeps both states as its own buffers. The ``quant_cache``
+collection (cached quantized weights and packed codes) maps onto the
+layers' cache buffers of the same names (``ops.layers.CACHE_KEYS``).
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import numpy as np
 import torch
 
 # collection -> the dict level that holds one site's state in it
-_SITE_LEVEL = {"params": None, "quant": "q", "quant_est": "est"}
+_SITE_LEVEL = {"params": None, "quant": "q", "quant_est": "est", "quant_cache": None}
 
 
 def _flatten(tree: Mapping, prefix, drop, out: Dict[str, torch.Tensor]):
@@ -27,13 +29,21 @@ def _flatten(tree: Mapping, prefix, drop, out: Dict[str, torch.Tensor]):
             is_site = key == drop and not any(isinstance(v, Mapping) for v in value.values())
             _flatten(value, prefix if is_site else prefix + [key], drop, out)
         else:
-            out[".".join(prefix + [key])] = torch.from_numpy(np.array(value))
+            out[".".join(prefix + [key])] = _tensor(np.array(value))
+
+
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    """numpy -> torch, bfloat16 (``ml_dtypes``, which numpy cannot name)
+    through its bits."""
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """``{"params": ..., "quant": ..., "quant_est": ...}`` of numpy arrays ->
-    ``state_dict``. Collections other than these three have no counterpart in
-    this slice and raise."""
+    """``{"params": ..., "quant": ..., "quant_est": ..., "quant_cache": ...}``
+    of numpy arrays -> ``state_dict``. Other collections have no counterpart
+    in the port yet and raise."""
     extra = set(variables) - set(_SITE_LEVEL)
     if extra:
         raise NotImplementedError(

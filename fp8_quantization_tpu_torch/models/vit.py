@@ -14,6 +14,12 @@ Quantization sites, as in the JAX package:
 
 Submodule and parameter names are the flax ones, so ``state_dict`` keys are
 the flax variable paths joined with dots (``models.bridge``).
+
+Chained serving (``QuantPhase.chained``): sites may hand 1-byte ``CodedFP``
+codes forward; every elementwise consumer (the head split, the residual
+adds, the logits) decodes them with ``decoded``, and products take bf16
+operands upcast to f32, so a fast-mode forward sums in f32 as the fixed
+phase does.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ from torch import nn
 from ..config import QuantConfig
 from ..ops.activations import ACTIVATIONS
 from ..ops.layers import QuantConv, QuantDense, QuantLayerNorm
-from ..quant.sites import FIXED, QuantPhase, QuantSite
+from ..quant.sites import FIXED, QuantPhase, QuantSite, codes_eligible, decoded
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,7 +53,8 @@ VIT_B_16 = ViTSpec()
 
 
 class _ActSite(nn.Module):
-    """A bare activation quantization site."""
+    """A bare activation quantization site; under chained serving it emits
+    ``CodedFP`` codes where its grid is eligible."""
 
     def __init__(self, qc: QuantConfig, device=None):
         super().__init__()
@@ -56,8 +63,13 @@ class _ActSite(nn.Module):
 
     def forward(self, x, qp: QuantPhase = FIXED):
         if qp.quant_a:
-            x = self.activation_quantizer(x, qp)
+            site = self.activation_quantizer
+            x = site(x, qp, as_codes=codes_eligible(site.qcfg, qp))
         return x
+
+
+def _f32(x):
+    return decoded(x).to(torch.float32)
 
 
 class QuantViTSelfAttention(nn.Module):
@@ -80,6 +92,8 @@ class QuantViTSelfAttention(nn.Module):
         b, t, _ = x.shape
 
         def split(u):
+            # chained outputs arrive as codes, fast ones as bf16 grid values
+            u = decoded(u).to(torch.float32)
             return u.reshape(b, t, s.num_heads, head_dim).transpose(1, 2)
 
         qh, kh, vh = split(q), split(k), split(v)
@@ -121,7 +135,7 @@ class QuantViTBlock(nn.Module):
         h = self.layernorm_before(x, qp)
         h = self.attention(h, qp)
         h = self.attention_output(h, qp)
-        x = self.residual1_site(h + x, qp)
+        x = self.residual1_site(_f32(h) + _f32(x), qp)
 
         y = self.layernorm_after(x, qp)
         y = self.intermediate(y, qp)
@@ -129,7 +143,7 @@ class QuantViTBlock(nn.Module):
             y = self.act(y)
         y = self.intermediate_site(y, qp)
         y = self.output(y, qp)
-        return self.residual2_site(y + x, qp)
+        return self.residual2_site(_f32(y) + _f32(x), qp)
 
 
 class QuantizedViT(nn.Module):
@@ -168,7 +182,7 @@ class QuantizedViT(nn.Module):
         s = self.spec
         b = x.shape[0]
         emb = self.patch_projection(x, qp).reshape(b, -1, s.hidden_size)
-        emb = self.patch_site(emb, qp)
+        emb = _f32(self.patch_site(emb, qp))
         cls = self.cls_token.expand(b, 1, s.hidden_size)
         emb = torch.cat([cls, emb], dim=1) + self.position_embeddings
         h = self.embeddings_site(emb, qp)
@@ -176,4 +190,4 @@ class QuantizedViT(nn.Module):
             h = getattr(self, f"layer_{i}")(h, qp)
         h = self.encoder_site(h, qp)
         h = self.layernorm(h, qp)
-        return self.classifier(h[:, 0, :], qp)
+        return decoded(self.classifier(h[:, 0, :], qp))

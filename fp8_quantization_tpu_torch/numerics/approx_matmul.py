@@ -48,7 +48,12 @@ def approx_products(A, B, expo_width: int, mant_width: int, bias_a, bias_b,
                     with_s2nn2s_opt: bool = False, golden_clip_of: bool = False,
                     quant_btw_mult_accu: bool = True):
     """The (M, K, N) tensor of approximate partial products whose sum over K
-    is :func:`approx_matmul_golden`."""
+    is :func:`approx_matmul_golden`.
+
+    The s2nn2s path zeroes a product whose golden value is 0 after the
+    requantization onto the result grid, as the JAX package's Pallas kernel
+    (which its CLI runs) does; its jnp oracle tests the raw product instead,
+    and differs for a nonzero product that rounds to zero there."""
     A = torch.as_tensor(A).to(torch.float32)
     B = torch.as_tensor(B, device=A.device).to(torch.float32)
     if A.shape[1] != B.shape[0]:
@@ -62,11 +67,10 @@ def approx_products(A, B, expo_width: int, mant_width: int, bias_a, bias_b,
     error_table = torch.as_tensor(error_table, device=dev).to(torch.int32)
 
     golden_3d = A[:, :, None] * B[None, :, :]
-    zero_mask_3d = golden_3d == 0
-
     if quant_btw_mult_accu:
         golden_3d = quantize_exmy(golden_3d, expo_width, mant_width, bias_r2,
                                   clip_of=golden_clip_of)
+    zero_mask_3d = golden_3d == 0
 
     one = torch.ones((), device=dev)
     mant_scale = float(1 << mant_width)
@@ -120,7 +124,7 @@ def approx_matmul_golden(A, B, expo_width: int, mant_width: int, bias_a, bias_b,
     from ``luts.get_error_table``. Returns (M, N) float32.
 
     ``with_of_opt``/``with_uf_opt`` act only with ``sim_hw_add_ofuf``, as in
-    the JAX package.
+    the JAX package; the s2nn2s zero mask as in :func:`approx_products`.
     """
     del with_of_opt, with_uf_opt
     if sim_hw_add_ofuf:

@@ -3,7 +3,8 @@
 
 Replaces ``fp8_quantization_tpu/ops/pallas/approx_matmul.py::approx_matmul_pallas``
 and takes the same arguments. A tensor on the CPU takes the plain version
-(``numerics.approx_matmul.approx_matmul_golden``); a CUDA tensor launches the
+(``numerics.approx_matmul.approx_matmul_golden`` with the Pallas kernel's
+s2nn2s zero mask, on the requantized golden); a CUDA tensor launches the
 kernel or raises. The kernel is bound by CUDA-core instruction issue (no
 tensor core can do the per-product codec work); see the source for what the
 design does about that.

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles, for ``sm_90a``, into a shared library with
 a plain C interface under ``fp8_quantization_tpu_torch/build/``. The file
-name carries a digest of the source and the flags, so an edited source is
-rebuilt and never mixed with an old library. Builds happen at first use (or
+name carries a digest of the source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source or header is rebuilt and never mixed with an
+old library. Builds happen at first use (or
 all at once, in parallel, through :func:`build_all`); nothing is compiled
 when a module is imported.
 """
@@ -21,7 +22,7 @@ from typing import Dict, Iterable
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("approx_matmul",)
+SOURCES = ("approx_matmul", "fused_matmul", "dequant_matmul")
 
 # -fmad=false keeps every multiply and add separately rounded, as in the
 # plain PyTorch versions; no --use_fast_math (it flushes subnormals)
@@ -51,8 +52,10 @@ def source_path(name: str) -> str:
 
 def library_path(name: str) -> str:
     h = hashlib.sha256()
-    with open(source_path(name), "rb") as f:
-        h.update(f.read())
+    headers = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cuh"))
+    for path in [source_path(name)] + [os.path.join(CSRC_DIR, n) for n in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 

@@ -17,10 +17,20 @@ A layer creates exactly the sites its flax counterpart populates under
 this module's ``state_dict`` one to one. Layouts are the JAX package's:
 ``(in, out)`` dense kernels, ``(*K, I, O)`` conv kernels, NHWC images, and the
 weight quantizer's channel axis -1.
+
+Serving phases: a ``cache_weights`` forward stores each dense and conv
+layer's quantized kernel in buffers named as the flax ``quant_cache``
+collection (``w_q``, ``w_bias``, ``w_nbits``; ``ops.fastpath.
+pack_dense_caches`` adds ``w_codes``, ``w_pack_bias``). Under ``fast`` the
+products take bf16 operands with f32 sums (dense layers through
+``ops.fastpath.quantized_matmul``, the K2 kernel); under ``packed`` a dense
+layer with codes runs the K4 dequant GEMM, with 1-byte ``CodedFP`` input
+under ``chained``, and a conv decodes its codes and convolves.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Callable, Optional, Sequence, Tuple, Union
 
@@ -29,9 +39,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import LATER as _LATER
-from ..config import ApproxConfig, EstimatorConfig, QuantConfig
-from ..quant.sites import FIXED, QuantPhase, QuantSite
+from ..config import ApproxConfig, EstimatorConfig, QMethod, QuantConfig
+from ..numerics.codec import unpack_exmy
+from ..quant.sites import FIXED, QuantPhase, QuantSite, codes_eligible, coded_shape, decoded
 from .cuda import approx_matmul as k3
+from .cuda import dequant_matmul as k4
+from .cuda.dequant_matmul import PackedWeights
+from .fastpath import quantized_matmul
+
+# the weight cache of a dense or conv layer, named as the flax quant_cache
+CACHE_KEYS = ("w_q", "w_bias", "w_nbits", "w_codes", "w_pack_bias")
 
 Activation = Optional[Callable[[torch.Tensor], torch.Tensor]]
 
@@ -106,6 +123,22 @@ class _QuantOpBase(nn.Module):
         else:
             self.weight_quantizer = None
 
+    def _init_cache(self):
+        for name in CACHE_KEYS:
+            self.register_buffer(name, None)
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        # weight-cache entries (a JAX quant_cache, or a cached or packed
+        # state_dict) arrive for buffers this module has not filled yet
+        for name in CACHE_KEYS:
+            key = prefix + name
+            if name in self._buffers and self._buffers[name] is None and key in state_dict:
+                self._buffers[name] = state_dict[key].detach().clone().to(self._device())
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+    def _device(self):
+        return next(itertools.chain(self.parameters(), self.buffers())).device
+
     def _quant_in(self, x, qp: QuantPhase):
         a_bias = None
         if self.qc.quantize_input and qp.quant_a:
@@ -115,7 +148,43 @@ class _QuantOpBase(nn.Module):
     def _quant_weight(self, kernel, qp: QuantPhase):
         if not qp.quant_w:
             return kernel, None
+        # bf16 storage is lossless only for FP (ExMy) grids
+        fast_bf16 = qp.fast and self.qc.method == QMethod.fp_quantizer
+        if qp.cache_weights:
+            w, w_bias = self.weight_quantizer(kernel, qp, with_bias=True)
+            if fast_bf16:
+                w = w.to(torch.bfloat16)
+            wb = w_bias if w_bias is not None else torch.zeros(0, device=w.device)
+            # the layer's own weight n_bits, so packing uses its format
+            fmt = torch.tensor([self.qc.weight_quantizer(self.n_bits_w).n_bits],
+                               dtype=torch.int32, device=w.device)
+            self.w_q, self.w_bias, self.w_nbits = w.detach(), wb.detach(), fmt
+            return w, w_bias
+        if not qp.estimating and self.w_q is not None:
+            w, wb = self.w_q, self.w_bias
+            if fast_bf16:
+                w = w.to(torch.bfloat16)
+            elif qp.fast and w.dtype == torch.bfloat16:
+                w = w.to(torch.float32)
+            return w, (wb if wb.numel() else None)
         return self.weight_quantizer(kernel, qp, with_bias=True)
+
+    def _packed_weights(self, qp: QuantPhase):
+        """The 1-byte weight codes installed by ``fastpath.pack_dense_caches``
+        for a ``packed`` phase, or None (the layer falls through to its
+        normal path)."""
+        if not (qp.packed and qp.quant_w and not qp.estimating
+                and not self._special_armed() and self.w_codes is not None):
+            return None
+        wq_cfg = self.qc.weight_quantizer(self.n_bits_w)
+        mant = int(wq_cfg.fp8.mantissa_bits)
+        return PackedWeights(codes=self.w_codes, bias=self.w_pack_bias,
+                             exact_fraction=torch.ones(()),
+                             expo_width=wq_cfg.n_bits - 1 - mant, mant_width=mant)
+
+    def _emits_codes(self, qp: QuantPhase) -> bool:
+        """Whether this layer's act and res sites pass chained codes under ``qp``."""
+        return codes_eligible(self.qc.act_quantizer(self.n_bits_act), qp)
 
     def _special_armed(self) -> bool:
         rm = self.qc.run_method
@@ -126,9 +195,9 @@ class _QuantOpBase(nn.Module):
         rm = self.qc.run_method
         return qp.estimating or rm.original_quantize_res or not self._special_armed()
 
-    def _res_quant(self, res, qp: QuantPhase):
+    def _res_quant(self, res, qp: QuantPhase, as_codes: bool = False):
         if self.res_quantizer is not None and qp.quant_a:
-            res = self.res_quantizer(res, qp)
+            res = self.res_quantizer(res, qp, as_codes=as_codes)
         return res
 
     def _special_matmul(self, x2d, w2d, a_bias, w_bias):
@@ -148,7 +217,9 @@ class _QuantOpBase(nn.Module):
 
     def _tail(self, res, qp: QuantPhase):
         if self.activation is not None:
-            res = self.activation(res.to(torch.float32))
+            # a bf16 or coded result holds grid values; the activation runs
+            # in f32 as in the fixed phase
+            res = self.activation(decoded(res).to(torch.float32))
         if not self.qc.quantize_input and qp.quant_a and self.quantize_output:
             res = self.activation_quantizer(res, qp)
         return res
@@ -164,6 +235,7 @@ class QuantDense(_QuantOpBase):
         self.kernel = nn.Parameter(lecun_normal_(
             torch.empty(in_features, features, device=device), in_features,
             generator))
+        self._init_cache()
         self.bias = (nn.Parameter(torch.zeros(features, device=device))
                      if use_bias else None)
 
@@ -171,15 +243,19 @@ class QuantDense(_QuantOpBase):
         return self._tail(self._dense_body(x, qp), qp)
 
     def _dense_body(self, x, qp: QuantPhase):
+        pw = self._packed_weights(qp)
+        if pw is not None:
+            return self._packed_body(x, pw, qp)
+        x = decoded(x)
         x, a_bias = self._quant_in(x, qp)
         w, w_bias = self._quant_weight(self.kernel, qp)
 
         res = None
         if self._plain_first(qp):
-            res = torch.matmul(x, w)
+            res = dense_product(x, w)
             if self.bias is not None:
                 res = res + self.bias
-            res = self._res_quant(res, qp)
+            res = self._res_quant(res, qp, as_codes=self._emits_codes(qp))
 
         if self._special_armed():
             x2d = x.reshape(-1, x.shape[-1])
@@ -188,6 +264,37 @@ class QuantDense(_QuantOpBase):
             if self.bias is not None:
                 res = res + self.bias
         return res
+
+    def _packed_body(self, x, pw: PackedWeights, qp: QuantPhase):
+        """Real 8-bit serving: the 1-byte weight codes go to the K4 dequant
+        GEMM; ``kernel`` is never read, so ``strip_packed_params`` may drop
+        it. Under ``chained`` the input is re-quantized on this layer's act
+        grid as 1-byte codes, which the kernel decodes on the load."""
+        lead_shape = coded_shape(x)[:-1]
+        k_in = coded_shape(x)[-1]
+        chain_in = self.qc.quantize_input and qp.quant_a and self._emits_codes(qp)
+        if chain_in:
+            xa = self.activation_quantizer(x, qp, as_codes=True)
+            x2d = xa.codes.reshape(-1, k_in)
+            xkw = dict(x_bias=xa.bias, x_expo=xa.expo_width, x_mant=xa.mant_width)
+        else:
+            x, _ = self._quant_in(decoded(x), qp)
+            x2d = x.reshape(-1, k_in).to(torch.bfloat16)
+            xkw = {}
+        out2d = k4.dequant_matmul(x2d, pw.codes, pw.bias, expo_width=pw.expo_width,
+                                  mant_width=pw.mant_width, **xkw)
+        res = out2d.reshape(*lead_shape, self.features)
+        if self.bias is not None:
+            res = res + self.bias
+        return self._res_quant(res, qp, as_codes=self._emits_codes(qp))
+
+
+def dense_product(x, w):
+    """``x @ w`` with f32 sums. bf16 operands (the fast phases' grid values)
+    go to the fast path's K2 GEMM; anything else multiplies in f32."""
+    if x.dtype == torch.bfloat16 and w.dtype == torch.bfloat16:
+        return quantized_matmul(x, w)
+    return torch.matmul(x.to(torch.float32), w.to(torch.float32))
 
 
 def _explicit_padding(spatial, kernel, strides, dilation, padding):
@@ -248,6 +355,7 @@ class QuantConv(_QuantOpBase):
         if len(kernel_size) != 2:
             raise NotImplementedError(f"QuantConv of spatial rank {len(kernel_size)} {_LATER}")
         super().__init__(qc, weight_channels=features, device=device, **kw)
+        self._init_cache()
         self.features = features
         self.kernel_size = tuple(kernel_size)
         self.strides = tuple(strides) if strides is not None else (1, 1)
@@ -264,15 +372,28 @@ class QuantConv(_QuantOpBase):
         return self._tail(self._conv_body(x, qp), qp)
 
     def _conv_body(self, x, qp: QuantPhase):
+        x = decoded(x)
+        kernel_shape = (*self.kernel_size, x.shape[-1], self.features)
+        pw = self._packed_weights(qp)
         x, a_bias = self._quant_in(x, qp)
-        w, w_bias = self._quant_weight(self.kernel, qp)
+        if pw is not None:
+            # real 8-bit conv serving: the 1-byte kernel codes decode by
+            # bit-ops; the f32 kernel is never read
+            w = unpack_exmy(pw.codes, pw.expo_width, pw.mant_width, pw.bias[None, :],
+                            dtype=torch.bfloat16 if qp.fast else torch.float32
+                            ).reshape(kernel_shape)
+            w_bias = None
+        else:
+            w, w_bias = self._quant_weight(self.kernel, qp)
 
         res = None
         if self._plain_first(qp):
-            pads = _explicit_padding(x.shape[1:3], self.kernel_size, self.strides,
+            # f32 operands and sums (bf16 grid values upcast exactly)
+            xf, wf = x.to(torch.float32), w.to(torch.float32)
+            pads = _explicit_padding(xf.shape[1:3], self.kernel_size, self.strides,
                                      self.dilation, self.padding)
-            res = F.conv2d(_pad_nchw(x.permute(0, 3, 1, 2), pads),
-                           w.permute(3, 2, 0, 1), stride=self.strides,
+            res = F.conv2d(_pad_nchw(xf.permute(0, 3, 1, 2), pads),
+                           wf.permute(3, 2, 0, 1), stride=self.strides,
                            dilation=self.dilation).permute(0, 2, 3, 1)
             if self.bias is not None:
                 res = res + self.bias
@@ -284,7 +405,7 @@ class QuantConv(_QuantOpBase):
             lead = patches.shape[:-1]
             out2d = self._special_matmul(
                 patches.reshape(-1, patches.shape[-1]),
-                w.reshape(-1, self.features),
+                w.to(torch.float32).reshape(-1, self.features),
                 a_bias,
                 None if w_bias is None else w_bias.reshape(-1))
             res = out2d.reshape(*lead, self.features)
@@ -308,7 +429,7 @@ class QuantLayerNorm(_QuantOpBase):
                      if use_bias else None)
 
     def forward(self, x, qp: QuantPhase = FIXED):
-        x, _ = self._quant_in(x, qp)
+        x, _ = self._quant_in(decoded(x), qp)
         x = x.to(torch.float32)
         mean = torch.mean(x, dim=-1, keepdim=True)
         var = torch.mean(torch.square(x - mean), dim=-1, keepdim=True)

@@ -1,6 +1,18 @@
 """Quantizers, range estimators and quantization sites (port of
 ``fp8_quantization_tpu.quant``)."""
 
-from .sites import ESTIMATE, FIXED, FP32, QuantPhase, QuantSite
+from .sites import (
+    CHAINED,
+    ESTIMATE,
+    FAST,
+    FIXED,
+    FP32,
+    PACKED,
+    CodedFP,
+    QuantPhase,
+    QuantSite,
+    decoded,
+)
 
-__all__ = ["ESTIMATE", "FIXED", "FP32", "QuantPhase", "QuantSite"]
+__all__ = ["CHAINED", "ESTIMATE", "FAST", "FIXED", "FP32", "PACKED", "CodedFP",
+           "QuantPhase", "QuantSite", "decoded"]

@@ -8,7 +8,11 @@ collections; here it is the module's buffers (``maxval``, ``mantissa_bits``,
 
 * ``ESTIMATE`` folds the batch into the range estimator, sets the quantizer
   range (updating the buffers in place), then quantizes;
-* ``FIXED`` quantizes with the frozen state.
+* ``FIXED`` quantizes with the frozen state; the serving phases ``FAST``,
+  ``PACKED`` and ``CHAINED`` do so with the bit-ops quantizer kernel (K1)
+  on per-tensor sites, emit bfloat16 (exact for every ExMy grid with at
+  most 7 mantissa bits) and, under ``CHAINED``, 1-byte :class:`CodedFP`
+  codes where the site is eligible (:func:`codes_eligible`).
 """
 
 from __future__ import annotations
@@ -20,14 +24,73 @@ from torch import nn
 
 from .. import LATER as _LATER
 from ..config import EstimatorConfig, QMethod, QuantizerConfig
+from ..numerics.rounding import to_int32
 from . import estimators, quantizers
+
+
+class Coded:
+    """int8 codes on a frozen per-tensor uniform grid: the chained currency
+    of the uniform quantizers."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(f"Coded (int8 chained activations) {_LATER}")
+
+
+class Affine:
+    """A tensor with a pending per-channel affine and clamp: the fused
+    boundary of int8 CNN serving."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(f"Affine (fused CNN serving boundaries) {_LATER}")
+
+
+@dataclasses.dataclass(frozen=True)
+class CodedFP:
+    """Activations as 1-byte ExMy codes on a frozen per-tensor FP grid: the
+    FP8 chained serving currency, ``value = unpack_exmy_bits(codes, bias)``.
+    Packing uses the site's safe packing bias (``fp_pack_bias``): bit-exact
+    with the fake-quantized values when the STE grid fits the byte field,
+    else the codes re-quantize onto the ``bias - 1`` grid, moving only
+    bottom-binade subnormals by at most half their ULP."""
+
+    codes: torch.Tensor   # uint8 ExMy codes (s:1|e:E|m:M)
+    bias: torch.Tensor    # () int32 packing bias
+    expo_width: int
+    mant_width: int
+
+    def reshape(self, *shape):
+        """Shape ops act on the codes (the per-tensor bias is unaffected)."""
+        return dataclasses.replace(self, codes=self.codes.reshape(*shape))
+
+
+def decoded(x, dtype=torch.float32):
+    """Materialize a :class:`CodedFP` back to values; identity for tensors."""
+    if isinstance(x, CodedFP):
+        from ..numerics.codec import unpack_consts, unpack_exmy_bits
+
+        eb, ss = unpack_consts(x.bias, x.mant_width)
+        return unpack_exmy_bits(x.codes, x.expo_width, x.mant_width, eb, ss, dtype=dtype)
+    return x
+
+
+def coded_shape(x):
+    """Shape of a maybe-coded value without decoding it."""
+    return x.codes.shape if isinstance(x, CodedFP) else x.shape
 
 
 @dataclasses.dataclass(frozen=True)
 class QuantPhase:
-    """Static per-call quantization context. The serving fields of the JAX
-    package's phase are kept by name; setting one raises until its slice
-    (the packed/chained serving currencies, the fused SDPA kernel) lands."""
+    """Static per-call quantization context.
+
+    ``cache_weights`` fills each layer's weight cache (``w_q``, ``w_bias``,
+    ``w_nbits``) so later fixed-phase calls skip the weight quantization;
+    ``fast`` runs the bf16 serving mode (sites emit bfloat16, products take
+    bf16 operands with f32 sums); ``packed`` has dense layers read 1-byte
+    ExMy weight codes (``ops.fastpath.pack_dense_caches``) through the
+    dequant GEMM kernel; ``chained`` (on top of ``packed``) passes
+    :class:`CodedFP` codes between layers. The re-estimation, gradient
+    scaling and fused-SDPA fields raise until their slices land.
+    """
 
     phase: str = "fixed"  # "estimate" | "fixed"
     quant_w: bool = True
@@ -43,8 +106,7 @@ class QuantPhase:
     def __post_init__(self):
         if self.phase not in ("estimate", "fixed"):
             raise ValueError(f"unknown phase {self.phase!r}")
-        for name in ("grad_scaling", "reestimate_bn", "cache_weights", "fast",
-                     "packed", "chained"):
+        for name in ("grad_scaling", "reestimate_bn"):
             if getattr(self, name):
                 raise NotImplementedError(f"QuantPhase.{name} {_LATER}")
         if self.fused_sdpa:
@@ -58,6 +120,27 @@ class QuantPhase:
 FP32 = QuantPhase(quant_w=False, quant_a=False)
 ESTIMATE = QuantPhase(phase="estimate")
 FIXED = QuantPhase(phase="fixed")
+FAST = QuantPhase(phase="fixed", fast=True)
+PACKED = QuantPhase(phase="fixed", fast=True, packed=True)
+CHAINED = QuantPhase(phase="fixed", fast=True, packed=True, chained=True)
+
+
+def codes_eligible(qcfg: QuantizerConfig, qp: QuantPhase) -> bool:
+    """Whether a site may emit :class:`CodedFP` under this phase: chained
+    serving with a frozen per-tensor grid of a static byte-sized format
+    (an elected mantissa width, ``mse_include_mantissa_bits`` or
+    ``learn_mantissa_bits``, could differ from the static split the codes
+    decode with)."""
+    if not (qp.chained and not qp.estimating and not qcfg.per_channel):
+        return False
+    if qcfg.method != QMethod.fp_quantizer:
+        return True
+    f = qcfg.fp8
+    mant = int(f.mantissa_bits)
+    expo = qcfg.n_bits - 1 - mant
+    return (not f.allow_unsigned and not f.learn_mantissa_bits
+            and not f.mse_include_mantissa_bits
+            and expo >= 1 and 1 + expo + mant <= 8)
 
 
 class QuantSite(nn.Module):
@@ -82,13 +165,27 @@ class QuantSite(nn.Module):
             self.register_buffer(k, v)
         for k, v in estimators.init(ecfg, qcfg, c, device).items():
             self.register_buffer(k, v)
+        self._frozen = None  # (state key, bias, fast-path scalars) for K1
 
     def _state(self, keys):
         return {k: getattr(self, k) for k in keys}
 
-    def forward(self, x, qp: QuantPhase = FIXED, *, with_bias: bool = False):
+    def forward(self, x, qp: QuantPhase = FIXED, *, with_bias: bool = False,
+                as_codes: bool = False):
         """Quantize ``x``; returns ``y`` or ``(y, bias)`` when ``with_bias``
-        (the approx-matmul path needs the derived exponent bias)."""
+        (the approx-matmul path needs the derived exponent bias).
+
+        ``as_codes`` (chained serving): return a :class:`CodedFP`, the
+        1-byte codes of the site's frozen grid on its packing bias."""
+        if isinstance(x, CodedFP):
+            x = decoded(x)
+        if as_codes and self.qcfg.method != QMethod.fp_quantizer:
+            raise NotImplementedError(f"int8 codes of uniform sites {_LATER}")
+        if as_codes and not codes_eligible(self.qcfg, qp):
+            raise ValueError("as_codes on an FP site needs a frozen per-tensor "
+                             "byte-sized static format (see codes_eligible)")
+        # quantizer math runs in f32; a bf16 input from a fast-mode site
+        # holds grid values, so the upcast is lossless
         x = x.to(torch.float32)
         per_channel = self.qcfg.per_channel
         q = self._state(self._Q_KEYS)
@@ -101,11 +198,56 @@ class QuantSite(nn.Module):
                 for k, v in {**q, **new_est}.items():
                     getattr(self, k).copy_(v)
             q = self._state(self._Q_KEYS)
-        y, bias = quantizers.fp_apply(self.qcfg, q, x, self.channel_axis)
+        if qp.fast and not qp.estimating and not per_channel:
+            y, bias = self._quantize_block(x, q)
+        else:
+            y, bias = quantizers.fp_apply(self.qcfg, q, x, self.channel_axis)
+        if as_codes:
+            from ..numerics.codec import pack_exmy
+
+            mant = int(self.qcfg.fp8.mantissa_bits)
+            expo = self.qcfg.n_bits - 1 - mant
+            pb = self.fp_pack_bias()[0]
+            return CodedFP(codes=pack_exmy(y, expo, mant, pb, clip_of=True), bias=pb,
+                           expo_width=expo, mant_width=mant)
+        if qp.fast and not qp.estimating and self.qcfg.n_bits <= 8:
+            # every ExMy value with mant_width <= 7 is exact in bf16
+            y = y.to(torch.bfloat16)
         return (y, bias) if with_bias else y
+
+    def _quantize_block(self, x, q):
+        """The frozen per-tensor grid through the bit-ops quantizer kernel
+        (K1), the JAX package's ``quantize_block``: equal to
+        ``quantizers.fp_apply`` wherever the derived bias is finite. The
+        scalars are derived once per state (``fastpath.scalar_params``) and
+        again only after the state changes."""
+        from ..ops.cuda.fused_matmul import quantize_block
+        from ..ops.fastpath import scalar_params
+
+        key = tuple((id(t), t._version) for t in q.values())
+        if self._frozen is None or self._frozen[0] != key:
+            self._frozen = (key, quantizers.fp_bias(self.qcfg, q),
+                            scalar_params(self.qcfg, q))
+        _, bias, params = self._frozen
+        return quantize_block(x, *params), bias
 
     def fp_bias(self):
         """Derived exponent bias from the current state."""
         if self.qcfg.method != QMethod.fp_quantizer:
             return None
         return quantizers.fp_bias(self.qcfg, self._state(self._Q_KEYS))
+
+    def fp_pack_bias(self):
+        """Safe int32 bias for 1-byte code packing: the STE bias when
+        ``maxval``'s binade fits the E-bit field, else ``bias - 1`` (the
+        STE quantizer rounds its bias, which can put the top binade one past
+        the field). The binade test is integer arithmetic on the IEEE
+        exponent field."""
+        q = self._state(self._Q_KEYS)
+        bias = to_int32(quantizers.fp_bias(self.qcfg, q))
+        mant = int(self.qcfg.fp8.mantissa_bits)
+        expo = self.qcfg.n_bits - 1 - mant
+        mv = q["maxval"].to(torch.float32).contiguous()
+        e_ieee = (torch.bitwise_right_shift(mv.view(torch.int32), 23) & 0xFF) - 127
+        fits = (e_ieee + bias) <= (1 << expo) - 1
+        return torch.where(fits, bias, bias - 1)

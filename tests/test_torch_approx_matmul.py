@@ -20,6 +20,7 @@ from fp8_quantization_tpu_torch.numerics.approx_matmul import (
     approx_matmul_golden,
     approx_products,
 )
+from fp8_quantization_tpu_torch.numerics import codec
 from fp8_quantization_tpu_torch.numerics.luts import get_error_table
 from fp8_quantization_tpu_torch.ops.cuda import approx_matmul as k3
 from test_torch_cuda import CASES, case_id, grid_operands
@@ -164,3 +165,53 @@ def test_sass_mix_counts_the_widest_loop():
     n, mix = sass_mix.loop_mix(instrs)
     assert n == 4
     assert mix == collections.Counter(fp32=1, int=1, shared_load=1, control=1)
+
+
+S2NN2S_BIAS_A = (2, 5, 8)
+S2NN2S_BIAS_B = (3, 7)
+S2NN2S_BIAS_R = (-6, 0, 6, 15)
+
+
+@pytest.mark.parametrize("expo,mant", [(3, 4), (4, 3), (2, 5)])
+def test_s2nn2s_zero_mask_on_every_single_product(expo, mant):
+    """The s2nn2s zero mask on every single product (K = 1) of the format's
+    signed value space, against a weight row holding the value space on each
+    of ``S2NN2S_BIAS_B``'s grids (a per-column bias), for each ``bias_a`` and
+    ``bias_r``, with ``with_s2nn2s_opt`` and ``quant_btw_mult_accu`` on.
+
+    JAX's jnp oracle zeroes a product whose raw value is 0; its Pallas
+    kernel, which the JAX CLI runs, one whose requantized golden is 0. On
+    E3M4 and E4M3 the two agree on every such product; on E2M5 they do not
+    (a nonzero product that rounds to zero on a low-``bias_r`` result grid,
+    such as 1.03125 * 1.9375 under ``bias_r = -6``). The port follows the
+    Pallas kernel: its ``approx_matmul_golden`` and K3 (plain version here,
+    the CUDA kernel on the card) equal it on every product."""
+    flags = dict(with_approx=True, with_s2nn2s_opt=True, quant_btw_mult_accu=True)
+    table = j_table(expo, mant, True, 3)
+
+    def signed_space(bias):
+        vs = codec.value_space(expo, mant, bias)
+        return torch.cat([vs, -vs[1:]])
+
+    b = torch.cat([signed_space(bb) for bb in S2NN2S_BIAS_B]).reshape(1, -1)
+    bias_b = np.repeat(np.array(S2NN2S_BIAS_B, np.int32), b.shape[1] // len(S2NN2S_BIAS_B))
+    disagree = 0
+    for ba in S2NN2S_BIAS_A:
+        a = signed_space(ba).reshape(-1, 1)
+        for br in S2NN2S_BIAS_R:
+            ours = k3.approx_matmul(a, b, ba, torch.from_numpy(bias_b), br,
+                                    expo_width=expo, mant_width=mant, with_comp=True,
+                                    **flags).numpy()
+            golden = approx_matmul_golden(a, b, expo, mant, ba, torch.from_numpy(bias_b), br,
+                                          get_error_table(expo, mant, True, 3),
+                                          **flags).numpy()
+            jax_golden = np.asarray(_j_golden(a.numpy(), b.numpy(), expo, mant, ba, bias_b,
+                                              br, table, **flags))
+            jax_kernel = np.asarray(approx_matmul_pallas(
+                jnp.asarray(a.numpy()), jnp.asarray(b.numpy()), ba, jnp.asarray(bias_b), br,
+                expo_width=expo, mant_width=mant, with_comp=True, **flags))
+            np.testing.assert_array_equal(ours, jax_kernel, err_msg=f"{ba} {br}")
+            np.testing.assert_array_equal(golden, jax_kernel, err_msg=f"{ba} {br}")
+            disagree += int((jax_kernel != jax_golden).sum())
+    # the two JAX functions disagree only where the grid is low enough
+    assert (disagree > 0) == ((expo, mant) == (2, 5))

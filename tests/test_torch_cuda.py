@@ -1,4 +1,6 @@
-"""K3 on the card: the CUDA kernel against its plain PyTorch version.
+"""The CUDA kernels on the card against their plain PyTorch versions: K3
+(approximate-multiplier GEMM), K1 (bit-ops quantizer), K2 (fused quant GEMM)
+and K4 (packed-FP8 dequant GEMM).
 
 Every test here needs a GPU (marker ``cuda``) and skips without one: the
 kernel has no CPU mode. The file imports neither JAX nor the JAX package, so
@@ -7,18 +9,27 @@ it also runs on a GPU machine that has no JAX, without ``tests/conftest.py``
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-The flag cases are the eight of ``tests/test_approx_pallas.py``;
+K3's flag cases are the eight of ``tests/test_approx_pallas.py``;
 ``tests/test_torch_approx_matmul.py`` holds the plain version against JAX on
 the same cases. Tolerance ``rtol=atol=1e-6``, the Pallas tests' own, for
 K <= 64: only the summation order over K separates the two.
+
+K1 must equal its plain version exactly (equal values; -0.0 and +0.0 alike).
+K2 and K4 sum the exact bf16 products in f32 in ascending k, as their plain
+versions do, so they must equal them exactly too; the stated tolerance of
+the port, ``K * 2^-24 * sum_k |x_k w_k|``, is what a different order could
+cost, and is checked as well.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from fp8_quantization_tpu_torch.numerics.codec import quantize_exmy
+from fp8_quantization_tpu_torch.numerics.codec import pack_exmy, quantize_exmy, value_space
+from fp8_quantization_tpu_torch.numerics.fp8_ste import quantize_to_fp8_ste
 from fp8_quantization_tpu_torch.ops.cuda import approx_matmul as k3
+from fp8_quantization_tpu_torch.ops.cuda import dequant_matmul as k4
+from fp8_quantization_tpu_torch.ops.cuda import fused_matmul as k2
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 
@@ -53,6 +64,12 @@ def grid_operands(rng, m, k, n, ew, mw, bias_a, bias_b):
     b = quantize_exmy(torch.from_numpy((rng.normal(size=(k, n)) * 2).astype(np.float32)),
                       ew, mw, bb).numpy()
     return a, b
+
+
+@pytest.fixture
+def rng():
+    """Seeded inputs (this file runs without ``tests/conftest.py`` on the card)."""
+    return np.random.default_rng(10)
 
 
 @pytest.fixture
@@ -117,3 +134,161 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         k3.approx_matmul(a, a.cpu().T, 5, 6, 4, **FLAGSHIP)
     with pytest.raises(ValueError):
         k3.approx_matmul(a, a, 5, 6, 4, **FLAGSHIP)
+
+
+@pytest.mark.cuda
+def test_kernel_s2nn2s_on_every_single_product(cuda):
+    """K3 with s2nn2s on every single product of the E2M5 value space on a
+    low result grid, where the zero mask decides (see
+    ``test_torch_approx_matmul.py::test_s2nn2s_zero_mask_on_every_single_product``)."""
+    vs = value_space(2, 5, 2)
+    a = torch.cat([vs, -vs[1:]]).reshape(-1, 1).numpy()
+    vb = value_space(2, 5, 3)
+    b = torch.cat([vb, -vb[1:]]).reshape(1, -1).numpy()
+    for br in (-6, -3, 0):
+        ours, plain = _kernel_and_plain(cuda, a, b, 2, 3, br, expo_width=2, mant_width=5,
+                                        with_comp=True, with_s2nn2s_opt=True)
+        np.testing.assert_array_equal(ours, plain)
+
+
+def k1_inputs(rng, maxval, shape=(33, 67)):
+    """Random values with zeros, f32 subnormals, +-maxval, the clip edges
+    and huge values written into the first elements."""
+    x = (rng.normal(size=shape) * maxval).astype(np.float32)
+    edges = np.array([0.0, -0.0, 1e-45, -1e-45, 1e-40, -1e-39, maxval, -maxval,
+                      np.nextafter(np.float32(maxval), np.float32(0)),
+                      np.nextafter(np.float32(maxval), np.float32(np.inf)),
+                      -np.nextafter(np.float32(maxval), np.float32(np.inf)),
+                      3e38, -3e38, 1e-3, 0.5, -2.0], np.float32)
+    x.reshape(-1)[:edges.size] = edges
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("maxval,mant,sign", [(2.75, 4, 1), (2.75, 4, 0), (100.0, 3, 1),
+                                              (0.02, 5, 1), (0.0, 4, 1)])
+def test_quantize_block_matches_plain(cuda, rng, maxval, mant, sign):
+    x = k1_inputs(rng, maxval or 1.0)
+    bias = quantize_to_fp8_ste(torch.from_numpy(x), 8, torch.tensor([maxval]), float(mant),
+                               sign)[1].reshape(())
+    xt = torch.from_numpy(x).to(cuda)
+    for view in (xt, xt[:, 1:]):          # an aligned tensor and an unaligned one
+        before = k2.quantize_block.launches
+        ours = k2.quantize_block(view, torch.tensor(maxval, device=cuda), bias.to(cuda),
+                                 mant, sign)
+        torch.cuda.synchronize()
+        assert k2.quantize_block.launches == before + 1
+        plain = k2.quantize_block_plain(view, maxval, bias, mant, sign)
+        assert torch.equal(ours, plain)
+
+
+@pytest.mark.cuda
+def test_quantize_block_past_one_grid(cuda, rng):
+    """The size of ViT-B/16's MLP activations at batch 8, more elements than
+    one pass of the kernel's grid covers: its grid-stride loop, aligned and
+    not."""
+    x = torch.from_numpy(k1_inputs(rng, 3.0, shape=(197 * 8, 3072))).to(cuda)
+    args = (torch.tensor(3.0, device=cuda), torch.tensor(5, device=cuda), 4, 1)
+    for view in (x, x.reshape(-1)[1:]):
+        before = k2.quantize_block.launches
+        ours = k2.quantize_block(view, *args)
+        torch.cuda.synchronize()
+        assert k2.quantize_block.launches == before + 1
+        assert torch.equal(ours, k2.quantize_block_plain(view, *args))
+
+
+def ste_weights(rng, k, n, mant, tiny_rows=True):
+    """STE-quantized (K, N) weights with their per-column biases, as a
+    calibrated per-channel weight site gives them; with ``tiny_rows`` an
+    eighth of the rows is tiny, so subnormal codes occur."""
+    w = rng.normal(size=(k, n)).astype(np.float32)
+    if tiny_rows:
+        w[: k // 8] *= 1e-6
+    mv = torch.from_numpy(np.abs(w).max(axis=0, keepdims=True))
+    wq, bias = quantize_to_fp8_ste(torch.from_numpy(w), 8, mv, float(mant), 1)
+    return wq, bias.reshape(-1)
+
+
+def _assert_gemm(ours, plain, x_eff, w_eff):
+    ours, plain = ours.float(), plain.float()
+    assert torch.equal(ours, plain)
+    k = x_eff.shape[1]
+    tol = k * 2.0 ** -24 * (x_eff.double().abs() @ w_eff.double().abs())
+    assert bool(((ours.double() - plain.double()).abs() <= tol).all())
+
+
+# the four ViT-B/16 dense shapes on a row slice, an unaligned one, and the
+# full batch-8 MLP output product (many row blocks)
+GEMM_SHAPES = [(64, 768, 768), (64, 768, 3072), (64, 3072, 768), (8, 768, 1000),
+               (13, 70, 29), (1576, 3072, 768)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", GEMM_SHAPES, ids=lambda v: str(v))
+def test_fused_quant_matmul_matches_plain(cuda, rng, m, k, n):
+    x = torch.from_numpy((rng.normal(size=(m, k)) * 2).astype(np.float32)).to(cuda)
+    wq, _ = ste_weights(rng, k, n, 4)
+    w16 = wq.to(cuda).to(torch.bfloat16)
+    act = (float(x.abs().max()), 5, 4, 1)
+    res = (40.0, 2, 4, 1)
+    for quantize_x in (True, False):
+        xin = x if quantize_x else x.to(torch.bfloat16)
+        x_eff = (k2.quantize_block_plain(x, *act) if quantize_x else xin).to(torch.bfloat16)
+        for requant in (False, True):
+            for out_dtype in (torch.float32, torch.bfloat16):
+                kw = dict(quantize_x=quantize_x, requantize_out=requant, out_dtype=out_dtype)
+                before = k2.fused_quant_matmul.launches
+                ours = k2.fused_quant_matmul(xin, w16, act, res, **kw)
+                torch.cuda.synchronize()
+                assert k2.fused_quant_matmul.launches == before + 1
+                plain = k2.fused_quant_matmul_plain(xin, w16, act, res, **kw)
+                assert ours.dtype == out_dtype
+                _assert_gemm(ours, plain, x_eff.float(), w16.float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", GEMM_SHAPES, ids=lambda v: str(v))
+def test_dequant_matmul_matches_plain(cuda, rng, m, k, n):
+    """Every x form (bf16, f32 quantized on the load, f32, codes), with and
+    without the res requant, f32 and bf16 out."""
+    wq, bias = ste_weights(rng, k, n, 4)
+    pw = k4.pack_weights(wq, bias, 3, 4)
+    codes, wbias = pw.codes.to(cuda), pw.bias.to(cuda)
+    w_eff = k4.unpack_weights(pw).to(cuda)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(cuda)
+    act = (3.0, 12, 4, 1)
+    xq = k2.quantize_block_plain(x, *act)
+    x_codes = pack_exmy(xq, 3, 4, 11, clip_of=True)
+    forms = [(xq.to(torch.bfloat16), {}, xq),
+             (x, dict(quantize_x=True, act_params=act), xq),
+             (x, {}, x.to(torch.bfloat16).float()),
+             (x_codes, dict(x_bias=11, x_expo=3, x_mant=4), xq)]
+    res = (6.0, 8, 4, 1)
+    for xin, kw, x_eff in forms:
+        for requant in (False, True):
+            for out_dtype in (torch.float32, torch.bfloat16):
+                args = dict(expo_width=3, mant_width=4, res_params=res,
+                            requantize_out=requant, out_dtype=out_dtype, **kw)
+                before = k4.dequant_matmul.launches
+                ours = k4.dequant_matmul(xin, codes, wbias, **args)
+                torch.cuda.synchronize()
+                assert k4.dequant_matmul.launches == before + 1
+                plain = k4.dequant_matmul_plain(xin, codes, wbias, **args)
+                assert ours.dtype == out_dtype
+                _assert_gemm(ours, plain, x_eff, w_eff)
+
+
+@pytest.mark.cuda
+def test_gemm_kernels_reject_what_they_do_not_take(cuda):
+    x = torch.zeros((4, 8), device=cuda)
+    w16 = torch.zeros((8, 3), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        k2.fused_quant_matmul(x, w16.cpu())
+    with pytest.raises(TypeError):
+        k2.fused_quant_matmul(x, w16, out_dtype=torch.float16)
+    codes = torch.zeros((8, 3), device=cuda, dtype=torch.uint8)
+    with pytest.raises(TypeError):
+        k4.dequant_matmul(x.double(), codes, torch.zeros(3, device=cuda), expo_width=3,
+                          mant_width=4)
+    with pytest.raises(TypeError):
+        k2.quantize_block(x.double(), 1.0, 5, 4, 1)

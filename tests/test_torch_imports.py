@@ -45,3 +45,50 @@ def test_no_jax_imports(path):
     bad = [m for m in _imported_modules(path)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+def _csrc(name):
+    with open(os.path.join(PORT, "csrc", name)) as f:
+        return f.read()
+
+
+def _sources():
+    from fp8_quantization_tpu_torch.ops.cuda import build
+
+    return build.SOURCES
+
+
+@pytest.mark.parametrize("name", ["approx_matmul", "fused_matmul", "dequant_matmul"])
+def test_cuda_source_is_built_with_a_plain_c_interface(name):
+    """Every kernel source is in ``build.SOURCES`` (compiled for sm_90a at
+    first use), exports ``extern "C"`` entry points for ctypes and includes
+    no PyTorch header (which would cost minutes of nvcc per build)."""
+    assert name in _sources()
+    text = _csrc(f"{name}.cu")
+    assert 'extern "C" int fp8q_' in text
+    includes = [ln for ln in text.splitlines() if ln.startswith("#include")]
+    assert not [ln for ln in includes if "torch/" in ln or "ATen" in ln or "c10" in ln]
+
+
+def test_every_csrc_file_is_a_source_or_an_included_header():
+    names = sorted(os.listdir(os.path.join(PORT, "csrc")))
+    sources = {f"{s}.cu" for s in _sources()}
+    included = {n for n in names if n.endswith(".cuh")
+                and any(f'#include "{n}"' in _csrc(m) for m in names if m != n)}
+    assert {n for n in names if n.endswith((".cu", ".cuh"))} == sources | included
+    assert {"exmy.cuh", "tile_gemm.cuh"} <= included
+
+
+def test_importing_the_port_builds_nothing():
+    """Every module imports without nvcc, triton or a GPU, and importing
+    loads no kernel library: kernels build at first launch."""
+    import importlib
+
+    from fp8_quantization_tpu_torch.ops.cuda import build
+
+    for path in _port_files():
+        rel = os.path.relpath(path, ROOT)
+        if rel == "chip_smoke.py":
+            continue
+        importlib.import_module(rel[:-3].replace(os.sep, ".").replace(".__init__", ""))
+    assert build._LOADED == {}

@@ -139,8 +139,11 @@ def test_quant_site_estimate_then_fixed(rng, per_channel):
 
 
 def test_unported_pieces_raise():
+    # the serving phases (fast, packed, chained) are ported; these are not
     with pytest.raises(NotImplementedError):
-        tsites.QuantPhase(phase="fixed", fast=True)
+        tsites.QuantPhase(phase="fixed", grad_scaling=True)
+    with pytest.raises(NotImplementedError):
+        tsites.QuantPhase(phase="fixed", reestimate_bn=True)
     with pytest.raises(NotImplementedError):
         tsites.QuantPhase(fused_sdpa=True)
     with pytest.raises(NotImplementedError):
