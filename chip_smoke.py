@@ -16,23 +16,39 @@ Phases, one line each (any failure exits non-zero; no phase is skipped):
    quantizer (K1) on random, zero, subnormal, +-maxval and clip-edge inputs;
    the fused quant GEMM (K2) and the packed-FP8 dequant GEMM (K4) in every
    switch combination at the four dense shapes on a 64-row slice and an
-   unaligned one. At the shapes of a batch-8 forward, in the configurations
-   the main path launches (K1 at every size it sees, K2 on bf16 x, K4 on
-   bf16 and on coded x), checks each kernel against its plain version
-   again and times it, its plain version and (for the GEMMs) cuBLAS,
-   beside the card's bound.
+   unaligned one; the fused SDPA (K7) at Llama-3-8B's cold prefill chunks, a
+   warm 2048-key slab with offsets, ViT-B/16's attention, an unaligned shape
+   and with its requant epilogue; the decode attention (K6) over Llama-3-8B's
+   2048-slot slabs in bf16 and in uint8 codes, and at an S off its key
+   block. At the shapes of a batch-8 forward, in the configurations the main
+   path launches (K1 at every size it sees, K2 on bf16 x, K4 on bf16 and on
+   coded x), checks each GEMM kernel against its plain version again and
+   times it, its plain version and (for the GEMMs) cuBLAS, beside the card's
+   bound.
 4. main path: ``validate-quantized`` through the port's CLI on full-width
    ViT-B/16 (seeded random weights, synthetic data, batch 8, one calibration
    and two eval batches): with the approximate multiplier (K3); with the
    reference's published flag set, which launches none; and with the
    published flags in the serving modes ``--fast-mode`` (K1, K2),
-   ``--fast-mode --packed-weights`` and ``... --chained-acts`` (K1, K4),
-   counting every kernel's launches with the counts zeroed just before each
-   run.
-5. model: full-width logits at depth 2, batch 1, through the kernels and
-   through their plain versions on the card, from one calibrated state: the
-   approximate ViT, and the published-flag ViT under PACKED and CHAINED
-   from one packed state.
+   ``--fast-mode --packed-weights`` and ``... --chained-acts`` (K1, K4).
+   Then ``ContinuousBatcher`` serving Llama-3-8B at full width (32 layers,
+   seeded random weights, calibrated as ``scripts/bench_llama.py`` does) with
+   ``fused_sdpa=True``: 4 slots of 2048, greedy, prompts of 17, 100, 256 and
+   511 tokens and a fifth of 64 admitted when a slot retires, 32 new tokens
+   each; under FAST with a bf16 cache (K1, K2, K7, K6) and under PACKED with
+   a uint8 cache (K1, K4, K7, K6 on codes). Every run counts each kernel's
+   launches with the counts zeroed just before it and holds them to the
+   counts its shapes imply, and ``torch.profiler`` then splits a decode step
+   of each phase into device and host time. K7 and K6 are checked and
+   timed at every shape the FAST run gave them (the PACKED run's K6 on
+   codes likewise), beside their plain versions,
+   ``scaled_dot_product_attention`` and the card's bound.
+5. model: full-width logits at depth 2 through the kernels and through their
+   plain versions on the card, from one calibrated state: the approximate
+   ViT; the published-flag ViT under PACKED and CHAINED from one packed
+   state, and under FAST with ``fused_sdpa=True``; Llama-3-8B under
+   FAST+fused and PACKED+packed_kv+fused (prefill logits, and the greedy
+   tokens of two prompts through the batcher).
 
 Before the last line it prints one JSON object with each kernel's launches,
 error, times and bound; the last line is
@@ -169,15 +185,16 @@ def grid_operands(m, k, n, device, seed, *, ew=3, mw=4, bias_a=5, bias_b=None):
 HEAD_START_CYCLES = 100_000_000
 
 
-def cuda_ms(fn, reps):
+def cuda_ms(fn, reps, head_start=HEAD_START_CYCLES):
     """Mean milliseconds of ``fn`` over ``reps`` runs, by CUDA events, after
-    one warm-up run. The timed runs queue behind a device sleep, so where
-    the host enqueues them faster than the sleep lasts the events time the
-    device's work and not the host's launch overhead."""
+    one warm-up run. The timed runs queue behind a device sleep of
+    ``head_start`` cycles, so where the host enqueues them faster than the
+    sleep lasts the events time the device's work and not the host's launch
+    overhead."""
     fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    torch.cuda._sleep(HEAD_START_CYCLES)
+    torch.cuda._sleep(head_start)
     start.record()
     for _ in range(reps):
         fn()
@@ -546,8 +563,11 @@ def plain_kernels():
     from fp8_quantization_tpu_torch.ops.cuda import dequant_matmul as dm
     from fp8_quantization_tpu_torch.ops.cuda import fused_matmul as fm
 
+    from fp8_quantization_tpu_torch.ops.cuda import attention as k7
+    from fp8_quantization_tpu_torch.ops.cuda import decode_attention as k6
+
     swaps = [(fm, "quantize_block"), (fm, "fused_quant_matmul"), (k3, "approx_matmul"),
-             (dm, "dequant_matmul")]
+             (dm, "dequant_matmul"), (k7, "fused_sdpa"), (k6, "decode_attention")]
     saved = [getattr(mod, name) for mod, name in swaps]
     for mod, name in swaps:
         setattr(mod, name, getattr(mod, name + "_plain"))
@@ -634,11 +654,459 @@ def check_serving_model(cli, dev, spec, counters):
         compare_logits(f"{name} (launches {counts})", logits, plain_logits, spec)
 
 
+# ---------------------------------------------------------------------------
+# Llama-3-8B serving with ContinuousBatcher (scripts/bench_llama.py's FP8
+# configuration and calibrate-then-serve sequence)
+
+LLAMA_PROMPTS = (17, 100, 256, 511)
+LLAMA_LATE_PROMPT = 64
+LLAMA_NEW_TOKENS = 32
+LLAMA_SLOTS = 4
+LLAMA_MAX_SEQ = 2048
+# device clock cycles of the sleep ahead of the microsecond attention kernels
+SHORT_HEAD_START = 10_000_000
+
+
+def llama_qc():
+    """``scripts/bench_llama.py::fp8_qc``: E3M4, per-channel current-minmax
+    weights, allminmax acts, quantize-input, res-quantizer with
+    ``original_quantize_res``."""
+    from fp8_quantization_tpu_torch import config as tc
+
+    return tc.QuantConfig(
+        method=tc.QMethod.fp_quantizer, per_channel_weights=True, quantize_input=True,
+        weight_range=tc.EstimatorConfig(tc.RangeMethod.current_minmax),
+        act_range=tc.EstimatorConfig(tc.RangeMethod.allminmax),
+        fp8=tc.FP8Config(set_maxval=True, mse_include_mantissa_bits=False),
+        run_method=tc.RunMethodConfig(res_quantizer_flag=True, original_quantize_res=True))
+
+
+def llama_k1_per_forward(spec):
+    """K1 launches of one serving forward: the act and res sites of the
+    seven projections and the K and V cache sites of every layer, and the
+    act and res sites of ``lm_head``."""
+    return spec.num_layers * (7 * 2 + 2) + 2
+
+
+def llama_dense_per_forward(spec):
+    return 7 * spec.num_layers + 1
+
+
+def calibrated_llama(spec, dev, seed):
+    """Seeded random weights made on the card, then ``calibrate_llama``:
+    an ESTIMATE forward of a (2, 16) calibration batch and a FAST
+    ``cache_weights`` forward."""
+    from fp8_quantization_tpu_torch.models.llama import QuantizedLlama
+    from fp8_quantization_tpu_torch.models.serving import calibrate_llama
+
+    model = QuantizedLlama(llama_qc(), spec, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(seed))
+    calibrate_llama(model, np.random.default_rng(10).integers(0, spec.vocab_size, (2, 16)))
+    return model
+
+
+def llama_prompts(spec):
+    rng = np.random.default_rng(20)
+    return [rng.integers(0, spec.vocab_size, size=n).tolist()
+            for n in LLAMA_PROMPTS + (LLAMA_LATE_PROMPT,)]
+
+
+def serving_phase(packed):
+    from fp8_quantization_tpu_torch.quant.sites import QuantPhase
+
+    return QuantPhase(phase="fixed", fast=True, packed=packed, fused_sdpa=True)
+
+
+def serve_llama(name, model, spec, qp, counters, dev):
+    """Phase 4: the four prompts, then the fifth into the first slot that
+    retires, 32 greedy tokens each, with every launch count zeroed just
+    before; the counts must be the ones the run's shapes imply. Returns the
+    run's record: stats, counts and the shapes K7 and K6 saw."""
+    from fp8_quantization_tpu_torch.models.serving import ContinuousBatcher, _pad_to_bucket
+
+    prompts = llama_prompts(spec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    batcher = ContinuousBatcher(model, spec, slots=LLAMA_SLOTS, max_seq=LLAMA_MAX_SEQ, qp=qp)
+    run = {"prefill_s": 0.0, "prefill_tokens": 0, "step_s": [], "step_tokens": 0,
+           "chunks": [], "step_lengths": [], "outputs": {}}
+    zero_counts(counters)
+
+    def admit(prompt):
+        t0 = time.perf_counter()
+        slot = batcher.admit(prompt, max_new_tokens=LLAMA_NEW_TOKENS)   # reads a token: syncs
+        run["prefill_s"] += time.perf_counter() - t0
+        run["prefill_tokens"] += len(prompt)
+        run["chunks"].append(_pad_to_bucket(len(prompt)))
+        return slot
+
+    owner = {admit(p): i for i, p in enumerate(prompts[:-1])}
+    late = prompts[-1]
+    while True:
+        lengths = batcher.cache.length.tolist()
+        t0 = time.perf_counter()
+        out = batcher.step()                                            # reads tokens: syncs
+        if not out:
+            break
+        run["step_s"].append(time.perf_counter() - t0)
+        run["step_tokens"] += len(out)
+        run["step_lengths"].append(lengths)
+        for slot in [s for s, st in batcher.active.items() if st["done"]]:
+            run["outputs"][owner.pop(slot)] = batcher.retire(slot)
+            if late is not None:
+                owner[admit(late)] = len(prompts) - 1
+                late = None
+    counts = read_counts(counters)
+    run["counts"] = counts
+    run["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    steps, admissions = len(run["step_s"]), len(run["chunks"])
+    forwards = steps + admissions
+    dense = "K4" if qp.packed else "K2"
+    expected = {"K1": llama_k1_per_forward(spec) * forwards, "K3": 0,
+                "K2": 0, "K4": 0, "K6": spec.num_layers * steps,
+                "K7": spec.num_layers * admissions}
+    expected[dense] = llama_dense_per_forward(spec) * forwards
+    outputs = run["outputs"]
+    ok = (counts == expected and sorted(outputs) == list(range(len(prompts)))
+          and all(len(o) == LLAMA_NEW_TOKENS and all(0 <= t < spec.vocab_size for t in o)
+                  for o in outputs.values()))
+    run["prefill_tok_s"] = run["prefill_tokens"] / run["prefill_s"]
+    run["decode_tok_s"] = run["step_tokens"] / sum(run["step_s"])
+    run["step_ms_median"] = 1e3 * float(np.median(run["step_s"]))
+    phase("main", f"Llama-3-8B {name}: {admissions} admissions ({run['prefill_tokens']} "
+                  f"prompt tokens, chunks {run['chunks']}), {steps} decode steps "
+                  f"({run['step_tokens']} tokens); prefill {run['prefill_tok_s']:.1f} tok/s, "
+                  f"decode {run['decode_tok_s']:.2f} tok/s, median step "
+                  f"{run['step_ms_median']:.2f} ms, peak memory {run['peak_gb']:.2f} GB; "
+                  f"launches {counts} (expected {expected}); first tokens "
+                  f"{[outputs[i][:4] for i in sorted(outputs)]}; ok={ok}")
+    if not ok:
+        raise SystemExit(f"Llama {name} serving: wrong launch counts or outputs")
+    return run
+
+
+def profile_decode(name, model, spec, qp, dev, steps=3):
+    """Where a decode step's time goes: ``torch.profiler`` over ``steps``
+    steps of a batcher holding the four prompts (after one unprofiled step).
+    Prints the wall and device time per step, the device's busy share, the
+    kernel launches per step and the heaviest kernels. The profiler's own
+    host cost inflates the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fp8_quantization_tpu_torch.models.serving import ContinuousBatcher
+
+    batcher = ContinuousBatcher(model, spec, slots=LLAMA_SLOTS, max_seq=LLAMA_MAX_SEQ, qp=qp)
+    for prompt in llama_prompts(spec)[:-1]:
+        batcher.admit(prompt, max_new_tokens=LLAMA_NEW_TOKENS)
+    batcher.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            batcher.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    kernels = sorted((e for e in prof.key_averages() if device_us(e) > 0), key=device_us,
+                     reverse=True)
+    busy_us = sum(device_us(e) for e in kernels)
+    launches = sum(e.count for e in kernels)
+    top = "; ".join(f"{e.key[:40]} {device_us(e) / 1e3 / steps:.2f} ms x{e.count // steps}"
+                    for e in kernels[:6])
+    phase("main", f"Llama-3-8B {name} decode step, profiled over {steps} steps at 4 live "
+                  f"slots: wall {1e3 * wall / steps:.2f} ms, device {busy_us / 1e3 / steps:.2f} "
+                  f"ms (busy share {busy_us / 1e6 / wall:.3f}), {launches // steps} kernel "
+                  f"launches per step; heaviest: {top}")
+
+
+def _close_attention(name, ours, plain):
+    """``max|d| <= 2e-3 * max(1, max|plain|)``; returns max|d|."""
+    ours, plain = ours.float(), plain.float()
+    err = float((ours - plain).abs().max())
+    scale = float(plain.abs().max())
+    ok = bool(torch.isfinite(ours).all()) and err <= 2e-3 * max(1.0, scale)
+    if not ok:
+        raise SystemExit(f"{name} disagrees with its plain version: max|d| {err:.3g} "
+                         f"against max|plain| {scale:.3g}")
+    return err
+
+
+def _randn(gen, *shape, dev):
+    return torch.randn(shape, generator=gen, device=dev)
+
+
+def check_attention(spec, dev):
+    """Phase 3: K7 and K6 against their plain versions at the shapes the
+    serving run does not give them (``time_llama_attention`` checks the cold
+    chunks and decode lengths it does give): K7 on a warm slab with offsets,
+    ViT-B/16 and an unaligned shape, each with the requant epilogue; K6 in
+    bf16 and codes at lengths up to the full slab and at an S that is not a
+    multiple of 512. Returns the worst max|d| of each."""
+    from fp8_quantization_tpu_torch.numerics.codec import pack_exmy
+    from fp8_quantization_tpu_torch.ops.cuda import attention as k7
+    from fp8_quantization_tpu_torch.ops.cuda import decode_attention as k6
+    from fp8_quantization_tpu_torch.ops.cuda.fused_matmul import quantize_block_plain
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    worst = {"K6": 0.0, "K7": 0.0}
+    h, hk, d = spec.num_heads, spec.num_kv_heads, spec.head_dim
+    cases = [("Llama warm slab S=2048 with offsets", (4, 16, 2048, h, hk, d),
+              dict(causal=True, offsets=[0, 100, 1000, 2032])),
+             ("ViT-B/16 batch 8", (8, 197, 197, 12, 12, 64), dict(s_valid=197)),
+             ("unaligned", (2, 37, 53, 6, 2, 40), dict(s_valid=45))]
+    res = (torch.tensor(2.0, device=dev), torch.tensor(5, dtype=torch.int32, device=dev), 4, 1)
+    for name, (b, t, s, nh, nk, hd), kw in cases:
+        q = _randn(gen, b, t, nh, hd, dev=dev).to(torch.bfloat16)
+        k, v = (_randn(gen, b, s, nk, hd, dev=dev).to(torch.bfloat16) for _ in range(2))
+        if "offsets" in kw:
+            kw = {**kw, "offsets": torch.tensor(kw["offsets"], dtype=torch.int32, device=dev)}
+        ours = k7.fused_sdpa(q, k, v, **kw)
+        err = _close_attention(f"K7 {name}", ours, k7.fused_sdpa_plain(q, k, v, **kw))
+        worst["K7"] = max(worst["K7"], err)
+        requant = k7.fused_sdpa(q, k, v, res_params=res, **kw)
+        exact = torch.equal(requant, quantize_block_plain(ours, *res))
+        if not exact:
+            raise SystemExit(f"K7 {name}: the requant epilogue is not K1 of its context")
+        phase("kernels", f"K7 {name} q {tuple(q.shape)} kv {tuple(k.shape)} {sorted(kw)}: "
+                         f"max|d| {err:.3g} (tolerance 2e-3 * max(1, max|plain|)); requant "
+                         f"epilogue equal to K1 of the context")
+    for b, s, lengths in ((4, 2048, [1, 100, 1000, 2048]), (3, 700, [1, 513, 700])):
+        q = _randn(gen, b, h, d, dev=dev)
+        kf, vf = (_randn(gen, b, s, hk, d, dev=dev) for _ in range(2))
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        kb, vb = (torch.tensor(x, dtype=torch.int32, device=dev) for x in (4, 5))
+        forms = [("bf16", kf.to(torch.bfloat16), vf.to(torch.bfloat16), {}),
+                 ("uint8 codes", pack_exmy(kf, 3, 4, kb, clip_of=True),
+                  pack_exmy(vf, 3, 4, vb, clip_of=True),
+                  dict(k_bias=kb, v_bias=vb, kv_expo=3, kv_mant=4))]
+        for form, ks, vs, kw in forms:
+            err = _close_attention(f"K6 {form} S={s}",
+                                   k6.decode_attention(q, ks, vs, lens, **kw),
+                                   k6.decode_attention_plain(q, ks, vs, lens, **kw))
+            worst["K6"] = max(worst["K6"], err)
+            phase("kernels", f"K6 {form} B={b} S={s} H={h} HK={hk} D={d} lengths {lengths}: "
+                             f"max|d| {err:.3g} (tolerance 2e-3 * max(1, max|plain|))")
+    return worst
+
+
+def _sdpa_library(q, k, v, **kw):
+    """``scaled_dot_product_attention`` on head-major views of the same bf16
+    operands (the yardstick only; the port never calls it)."""
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                          v.transpose(1, 2), enable_gqa=True, **kw)
+
+
+def time_llama_attention(spec, dev, run, coded, worst):
+    """K7 at every admission chunk and K6 at every decode step's lengths of
+    one serving run, held against their plain versions once more and timed
+    on seeded operands of those shapes: kernel (CUDA events, mean of 3-5
+    after a warm-up), plain version (1 run), ``scaled_dot_product_attention``
+    on the same bf16 operands (K6 on the decoded slab, with the length mask)
+    and the bound, the larger of the bytes over HBM bandwidth and 2 x 2 x
+    (query, key) pairs x D over the bf16 tensor-core peak. Totals are per
+    run: each shape's times x the layers. K7 only for the bf16 run (the
+    packed run's chunks are the same)."""
+    from fp8_quantization_tpu_torch.numerics.codec import pack_exmy, unpack_exmy
+    from fp8_quantization_tpu_torch.ops.cuda import attention as k7
+    from fp8_quantization_tpu_torch.ops.cuda import decode_attention as k6
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    h, hk, d, layers = spec.num_heads, spec.num_kv_heads, spec.head_dim, spec.num_layers
+    out = {}
+    if not coded:
+        k7t = {}
+        for t in run["chunks"]:
+            q = _randn(gen, 1, t, h, d, dev=dev).to(torch.bfloat16)
+            k, v = (_randn(gen, 1, t, hk, d, dev=dev).to(torch.bfloat16) for _ in range(2))
+            worst["K7"] = max(worst["K7"], _close_attention(
+                f"K7 T={t}", k7.fused_sdpa(q, k, v, causal=True),
+                k7.fused_sdpa_plain(q, k, v, causal=True)))
+            ms = cuda_ms(lambda: k7.fused_sdpa(q, k, v, causal=True), 5, SHORT_HEAD_START)
+            plain_ms = cuda_ms(lambda: k7.fused_sdpa_plain(q, k, v, causal=True), 1)
+            lib_ms = cuda_ms(lambda: _sdpa_library(q, k, v, is_causal=True), 5, SHORT_HEAD_START)
+            pairs = t * (t + 1) // 2
+            bytes_ms, ops_ms = _bound(2 * t * h * d + 2 * 2 * t * hk * d + 4 * t * h * d,
+                                      2 * 2 * h * d * pairs)
+            _add(k7t, layers, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bytes_ms=bytes_ms,
+                 ops_ms=ops_ms)
+            phase("kernels", f"K7 Llama chunk T={t} x{layers}/admission: kernel {ms:.4f} ms, "
+                             f"plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound "
+                             f"{max(bytes_ms, ops_ms):.4f} ms")
+        out["K7"] = _finish(k7t)
+    b, s = LLAMA_SLOTS, LLAMA_MAX_SEQ
+    q = _randn(gen, b, h, d, dev=dev)
+    kf, vf = (_randn(gen, b, s, hk, d, dev=dev) for _ in range(2))
+    if coded:
+        kb, vb = (torch.tensor(x, dtype=torch.int32, device=dev) for x in (4, 5))
+        ks, vs = pack_exmy(kf, 3, 4, kb, clip_of=True), pack_exmy(vf, 3, 4, vb, clip_of=True)
+        kw = dict(k_bias=kb, v_bias=vb, kv_expo=3, kv_mant=4)
+        k16 = unpack_exmy(ks, 3, 4, kb, dtype=torch.bfloat16)
+        v16 = unpack_exmy(vs, 3, 4, vb, dtype=torch.bfloat16)
+        eb = 1
+    else:
+        ks, vs, kw = kf.to(torch.bfloat16), vf.to(torch.bfloat16), {}
+        k16, v16, eb = ks, vs, 2
+    q16 = q.to(torch.bfloat16)[:, None]
+    pos = torch.arange(s, device=dev)
+    k6t = {}
+    for i, lengths in enumerate(run["step_lengths"]):
+        lens = torch.tensor([n + 1 for n in lengths], dtype=torch.int32, device=dev)
+        mask = (pos[None, :] < lens[:, None])[:, None, None, :]
+        if i % 8 == 0:
+            worst["K6"] = max(worst["K6"], _close_attention(
+                f"K6 step {i}", k6.decode_attention(q, ks, vs, lens, **kw),
+                k6.decode_attention_plain(q, ks, vs, lens, **kw)))
+        ms = cuda_ms(lambda: k6.decode_attention(q, ks, vs, lens, **kw), 3, SHORT_HEAD_START)
+        plain_ms = cuda_ms(lambda: k6.decode_attention_plain(q, ks, vs, lens, **kw), 1)
+        lib_ms = cuda_ms(lambda: _sdpa_library(q16, k16, v16, attn_mask=mask), 3,
+                         SHORT_HEAD_START)
+        keys = sum(min(n + 1, s) for n in lengths)
+        bytes_ms, ops_ms = _bound(2 * eb * keys * hk * d + 2 * 4 * b * h * d + 4 * b,
+                                  2 * 2 * h * d * keys)
+        _add(k6t, layers, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bytes_ms=bytes_ms,
+             ops_ms=ops_ms)
+    out["K6"] = _finish(k6t)
+    steps = len(run["step_lengths"])
+    t6 = out["K6"]
+    phase("kernels", f"K6 ({'uint8 codes' if coded else 'bf16'}) over the run's {steps} decode "
+                     f"steps x{layers} layers: kernel {t6['ms']:.3f} ms "
+                     f"({1e3 * t6['ms'] / (steps * layers):.2f} us/launch), plain "
+                     f"{t6['plain_ms']:.3f} ms, SDPA {t6['library_ms']:.3f} ms, bound "
+                     f"{t6['bound_ms']:.3f} ms ({t6['bound_by']})")
+    return out
+
+
+def check_llama_model(dev, counters):
+    """Phase 5: full-width Llama-3-8B at depth 2 through the kernels and
+    through their plain versions, from one calibrated state, under FAST+fused
+    and then (packed and stripped in place) PACKED+packed_kv+fused: prefill
+    logits within a relative RMS of 1e-2 with the same argmax, and the same
+    greedy tokens of two prompts through the batcher."""
+    from fp8_quantization_tpu_torch.models.llama import LLAMA3_8B, KVCache
+    from fp8_quantization_tpu_torch.models.serving import (
+        ContinuousBatcher,
+        _pad_to_bucket,
+        pack_llama,
+    )
+
+    spec = dataclasses.replace(LLAMA3_8B, num_layers=2)
+    model = calibrated_llama(spec, dev, seed=1)
+    prompts = llama_prompts(spec)[:2]
+    real = len(prompts[1])
+    tokens = torch.zeros((1, _pad_to_bucket(real)), dtype=torch.long, device=dev)
+    tokens[0, :real] = torch.tensor(prompts[1], device=dev)
+    for name, packed in (("FAST+fused", False), ("PACKED+packed_kv+fused", True)):
+        if packed:
+            pack_llama(model)
+        qp = serving_phase(packed)
+        kv = torch.uint8 if packed else torch.bfloat16
+
+        def prefill():
+            cache = KVCache.zeros(spec, 1, LLAMA_MAX_SEQ, dtype=kv, device=dev)
+            with torch.no_grad():
+                return model(tokens, cache, qp, chunk_attention=True)[0][0, :real].float()
+
+        def generate():
+            batcher = ContinuousBatcher(model, spec, slots=2, max_seq=LLAMA_MAX_SEQ, qp=qp)
+            slots = [batcher.admit(p, max_new_tokens=8) for p in prompts]
+            batcher.run_to_completion()
+            return [batcher.retire(s) for s in slots]
+
+        zero_counts(counters)
+        logits, toks = prefill(), generate()
+        counts = read_counts(counters)
+        with plain_kernels():
+            plain_logits, plain_toks = prefill(), generate()
+        dense = "K4" if packed else "K2"
+        if (min(counts["K7"], counts["K6"], counts[dense], counts["K1"]) == 0
+                or read_counts(counters) != counts):
+            raise SystemExit(f"Llama depth 2 {name}: launches {counts} (K7, K6, {dense} and "
+                             "K1 expected; none from the plain versions)")
+        diff = float((logits - plain_logits).abs().max())
+        rel = float(((logits - plain_logits) ** 2).mean().sqrt() / plain_logits.std())
+        same = bool((logits.argmax(-1) == plain_logits.argmax(-1)).all())
+        ok = (bool(torch.isfinite(logits).all()) and rel < 1e-2 and same
+              and toks == plain_toks and tuple(logits.shape) == (real, spec.vocab_size))
+        phase("model", f"Llama-3-8B width {spec.hidden_size}, depth 2, {name}: prefill logits "
+                       f"({real} tokens) max|kernel - plain| {diff:.3g}, relative RMS "
+                       f"{rel:.3g}, same argmax {same}; greedy tokens {toks} "
+                       f"{'equal' if toks == plain_toks else 'DIFFER: ' + str(plain_toks)}; "
+                       f"launches {counts}; ok={ok}")
+        if not ok:
+            raise SystemExit(f"Llama depth 2 {name}: kernels and plain versions disagree")
+
+
+def check_vit_fused(cli, dev, spec, counters):
+    """Phase 5: the published-flag ViT under FAST with ``fused_sdpa=True``
+    through the kernels (K1, K2, K7) and their plain versions: the same top-1
+    and a relative RMS below 1e-2, the Llama check's contract."""
+    from fp8_quantization_tpu_torch.quant.sites import QuantPhase
+
+    model, _, xt = calibrated_model(cli, PUBLISHED_FLAGS, dev, spec)
+    qp = QuantPhase(phase="fixed", fast=True, fused_sdpa=True)
+    with torch.no_grad():
+        zero_counts(counters)
+        logits = model(xt, qp).float()
+        counts = read_counts(counters)
+        with plain_kernels():
+            plain = model(xt, qp).float()
+    diff = float((logits - plain).abs().max())
+    rel = float(((logits - plain) ** 2).mean().sqrt() / plain.std())
+    same = bool((logits.argmax(-1) == plain.argmax(-1)).all())
+    ok = (counts["K7"] == spec.num_layers and counts["K2"] == 6 * spec.num_layers + 1
+          and counts["K1"] > 0 and read_counts(counters) == counts and rel < 1e-2 and same
+          and bool(torch.isfinite(logits).all()))
+    phase("model", f"ViT-B/16 FAST+fused, depth {spec.num_layers}, batch 1: max|kernel - "
+                   f"plain| {diff:.3g}, relative RMS {rel:.3g}, same top-1 {same}, launches "
+                   f"{counts}, ok={ok}")
+    if not ok:
+        raise SystemExit("ViT FAST+fused: kernels and plain versions disagree")
+
+
+def run_llama_serving(dev, counters):
+    """Phase 4 for Llama-3-8B: one model, calibrated once; the FAST run on a
+    bf16 cache, then packing and stripping in place and the PACKED run on a
+    uint8 cache of the same calibrated sites."""
+    from fp8_quantization_tpu_torch.models.llama import LLAMA3_8B
+    from fp8_quantization_tpu_torch.models.serving import pack_llama
+
+    spec = LLAMA3_8B
+    t0 = time.perf_counter()
+    model = calibrated_llama(spec, dev, seed=0)
+    torch.cuda.synchronize()
+    params = sum(p.numel() for p in model.parameters())
+    phase("main", f"Llama-3-8B: {params / 1e9:.3f} B parameters, built and calibrated in "
+                  f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated(dev) / 1e9:.2f}"
+                  f" GB allocated")
+    runs = {"fast": serve_llama("FAST+fused, bf16 KV", model, spec, serving_phase(False),
+                                counters, dev)}
+    profile_decode("FAST+fused", model, spec, serving_phase(False), dev)
+    t0 = time.perf_counter()
+    report = pack_llama(model)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    phase("main", f"packed {len(report)} layers in {time.perf_counter() - t0:.1f} s (bit-exact "
+                  f"channel fraction {min(report.values()):.3f}..{max(report.values()):.3f}), "
+                  f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated")
+    runs["packed"] = serve_llama("PACKED+packed_kv+fused, uint8 KV", model, spec,
+                                 serving_phase(True), counters, dev)
+    profile_decode("PACKED+packed_kv+fused", model, spec, serving_phase(True), dev)
+    del model
+    torch.cuda.empty_cache()
+    return spec, runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 1
     from fp8_quantization_tpu_torch import cli
+    from fp8_quantization_tpu_torch.models.llama import LLAMA3_8B
     from fp8_quantization_tpu_torch.models.vit import VIT_B_16
     from fp8_quantization_tpu_torch.ops.cuda import KERNELS
     from fp8_quantization_tpu_torch.ops.cuda import approx_matmul as k3
@@ -677,6 +1145,7 @@ def main() -> int:
     max_err, k3_times = check_kernel_against_plain(k3, dev, mix["instructions_per_product"])
     gemm_err = check_gemms(fm, dm, dev)
     gemm_err["K1"] = check_k1(fm, dev)
+    gemm_err.update(check_attention(LLAMA3_8B, dev))
 
     # 4. the main path: each run with every launch count zeroed just before
     counters = KERNELS
@@ -705,13 +1174,23 @@ def main() -> int:
     times = time_serving_kernels(fm, dm, dev, gemm_err)
     times["K3"] = k3_times
 
+    # Llama-3-8B served by ContinuousBatcher; K7 and K6 checked and timed at
+    # the shapes each run gave them
+    llama_spec, llama = run_llama_serving(dev, counters)
+    times.update(time_llama_attention(llama_spec, dev, llama["fast"], False, gemm_err))
+    times["K6 codes"] = time_llama_attention(llama_spec, dev, llama["packed"], True,
+                                             gemm_err)["K6"]
+
     # 5. whole-model checks at full width, depth 2, batch 1
     depth2 = dataclasses.replace(VIT_B_16, num_layers=2)
     check_model(cli, APPROX_FLAGS, dev, depth2)
     check_serving_model(cli, dev, depth2, counters)
+    check_vit_fused(cli, dev, depth2, counters)
+    check_llama_model(dev, counters)
 
     # launches: each kernel's count in the main-path run that drives it in
-    # the configuration timed above (K4: bf16 x, as --packed-weights runs it)
+    # the configuration timed above (K4: bf16 x, as --packed-weights runs it;
+    # K6: the bf16 cache, as the FAST Llama run reads it)
     kernels = [
         ("quantize_block", "K1", "fused_matmul.cu", "fused_matmul.py:39",
          serving["fast"][2]["K1"], gemm_err["K1"]),
@@ -721,6 +1200,11 @@ def main() -> int:
          approx_counts["K3"], max_err),
         ("dequant_matmul", "K4", "dequant_matmul.cu", "dequant_matmul.py:269",
          serving["packed"][2]["K4"], gemm_err["K4"]),
+        # per FAST serving run of Llama-3-8B (bf16 cache)
+        ("decode_attention", "K6", "decode_attention.cu", "decode_attention.py:101",
+         llama["fast"]["counts"]["K6"], gemm_err["K6"]),
+        ("fused_sdpa", "K7", "attention.cu", "attention.py:136",
+         llama["fast"]["counts"]["K7"], gemm_err["K7"]),
     ]
     record = {"kernels": [{
         "name": name,
@@ -737,12 +1221,16 @@ def main() -> int:
     } for name, key, src, tpu, launches, err in kernels]}
     per_forward = "; ".join(
         f"{key} {t['ms']:.3f} ms (plain {t['plain_ms']:.3f}, bound {t['bound_ms']:.3f}"
-        + (f", cuBLAS {t['library_ms']:.3f}" if t.get("library_ms") is not None else "")
+        + (f", library {t['library_ms']:.3f}" if t.get("library_ms") is not None else "")
         + ")" for key, t in sorted(times.items()))
+    served = "; ".join(
+        f"Llama-3-8B {mode}: prefill {r['prefill_tok_s']:.1f} tok/s, decode "
+        f"{r['decode_tok_s']:.2f} tok/s, median step {r['step_ms_median']:.2f} ms, peak "
+        f"{r['peak_gb']:.2f} GB" for mode, r in llama.items())
     phase("done", f"ms/img: approx {approx_ms:.2f}, published {pub_ms:.2f}, "
                   + ", ".join(f"{mode} {serving[mode][1]:.2f}" for mode in SERVING_FLAGS)
-                  + f"; per batch-{BATCH} forward: {per_forward}; "
-                  f"{time.perf_counter() - t_start:.1f} s in all")
+                  + f"; {served}; per batch-{BATCH} forward (K1-K4) or serving run (K6, K7): "
+                  f"{per_forward}; {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

@@ -8,7 +8,9 @@ module here. The layouts already agree (``(in, out)`` dense kernels,
 with dots, with the per-site ``q`` / ``est`` dict levels dropped, because a
 QuantSite keeps both states as its own buffers. The ``quant_cache``
 collection (cached quantized weights and packed codes) maps onto the
-layers' cache buffers of the same names (``ops.layers.CACHE_KEYS``).
+layers' cache buffers of the same names (``ops.layers.CACHE_KEYS``). The ViT
+and the Llama models (``embed``, ``layer_{i}``, ``k_cache_quantizer``, ...)
+carry across alike.
 """
 
 from __future__ import annotations

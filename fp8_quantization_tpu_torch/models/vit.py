@@ -1,5 +1,6 @@
 """Quantized ViT-B/16 (the HF ``google/vit-base-patch16-224`` architecture),
-port of ``models/vit.py`` on its einsum attention path.
+port of ``models/vit.py``: the einsum attention path and, in the serving
+phases with ``QuantPhase(fused_sdpa=True)``, the fused SDPA kernel (K7).
 
 Quantization sites, as in the JAX package:
 
@@ -32,6 +33,7 @@ from torch import nn
 
 from ..config import QuantConfig
 from ..ops.activations import ACTIVATIONS
+from ..ops.cuda import attention as k7
 from ..ops.layers import QuantConv, QuantDense, QuantLayerNorm
 from ..quant.sites import FIXED, QuantPhase, QuantSite, codes_eligible, decoded
 
@@ -73,7 +75,10 @@ def _f32(x):
 
 
 class QuantViTSelfAttention(nn.Module):
-    """q/k/v projections quantized; the attention itself unquantized."""
+    """q/k/v projections quantized; the attention itself unquantized. In a
+    serving phase with ``fused_sdpa`` set, the attention is one K7 launch
+    over token-major bf16 operands (the head split is a view); otherwise it
+    is the einsum path in f32."""
 
     def __init__(self, qc: QuantConfig, spec: ViTSpec, generator=None, device=None):
         super().__init__()
@@ -90,6 +95,13 @@ class QuantViTSelfAttention(nn.Module):
         head_dim = s.hidden_size // s.num_heads
         q, k, v = self.query(x, qp), self.key(x, qp), self.value(x, qp)
         b, t, _ = x.shape
+
+        if qp.fast and not qp.estimating and qp.fused_sdpa:
+            def tok(u):
+                return decoded(u).reshape(b, t, s.num_heads, head_dim).to(torch.bfloat16)
+
+            ctx = k7.fused_sdpa(tok(q), tok(k), tok(v), s_valid=t)
+            return self.context_site(ctx.reshape(b, t, s.hidden_size), qp)
 
         def split(u):
             # chained outputs arrive as codes, fast ones as bf16 grid values

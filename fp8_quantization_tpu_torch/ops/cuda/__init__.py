@@ -2,7 +2,7 @@
 PyTorch version. Sources live in ``fp8_quantization_tpu_torch/csrc``;
 ``build`` compiles them at first use."""
 
-from . import approx_matmul, dequant_matmul, fused_matmul
+from . import approx_matmul, attention, decode_attention, dequant_matmul, fused_matmul
 
 # every kernel wrapper, whose ``launches`` attribute counts its launches
 KERNELS = {
@@ -10,4 +10,6 @@ KERNELS = {
     "K2": fused_matmul.fused_quant_matmul,
     "K3": approx_matmul.approx_matmul,
     "K4": dequant_matmul.dequant_matmul,
+    "K6": decode_attention.decode_attention,
+    "K7": attention.fused_sdpa,
 }

@@ -53,14 +53,31 @@ class PackedWeights(NamedTuple):
     mant_width: int
 
 
+# weight elements packed per pass: a full-width weight (Llama-3-8B's lm_head
+# is 4096 x 128256) packs a slice of columns at a time instead of holding a
+# dozen full-size f32 temporaries at once; every step is per column
+PACK_CHUNK_ELEMENTS = 1 << 26
+
+
 def pack_weights(w_q, w_bias, expo_width: int, mant_width: int) -> PackedWeights:
     """Pack STE-quantized (K, N) weights, already on their ExMy grid, into
     per-channel byte codes. ``w_bias`` is the weight quantizer's derived
     per-channel bias, (N,) or (1,)."""
-    w_q = torch.as_tensor(w_q).to(torch.float32)
-    _, n = w_q.shape
+    w_q = torch.as_tensor(w_q)
+    k, n = w_q.shape
     bias = to_int32(w_bias, w_q.device).reshape(-1).expand(n).contiguous()
+    step = max(1, PACK_CHUNK_ELEMENTS // max(k, 1))
+    parts = [_pack_columns(w_q[:, c:c + step].to(torch.float32), bias[c:c + step],
+                           expo_width, mant_width) for c in range(0, n, step)]
+    codes, bias_pack, exact = (torch.cat(p, dim=-1) for p in zip(*parts))
+    # the mean as XLA takes it: the sum times the reciprocal of the count
+    return PackedWeights(codes=codes, bias=bias_pack,
+                         exact_fraction=exact.to(torch.float32).sum() * (1.0 / n),
+                         expo_width=expo_width, mant_width=mant_width)
 
+
+def _pack_columns(w_q, bias, expo_width: int, mant_width: int):
+    """(codes, packing bias, value-exact) of some columns of ``pack_weights``."""
     codes0 = pack_exmy(w_q, expo_width, mant_width, bias[None, :])
     fits = torch.all(unpack_exmy(codes0, expo_width, mant_width, bias[None, :]) == w_q,
                      dim=0)
@@ -74,10 +91,7 @@ def pack_weights(w_q, w_bias, expo_width: int, mant_width: int) -> PackedWeights
     # top-binade, which the bias-1 grid holds exactly): report value equality
     exact = torch.all(
         unpack_exmy(codes, expo_width, mant_width, bias_pack[None, :]) == w_q, dim=0)
-    # the mean as XLA takes it: the sum times the reciprocal of the count
-    return PackedWeights(codes=codes, bias=bias_pack,
-                         exact_fraction=exact.to(torch.float32).sum() * (1.0 / n),
-                         expo_width=expo_width, mant_width=mant_width)
+    return codes, bias_pack, exact
 
 
 def unpack_weights(pw: PackedWeights, dtype=torch.float32):

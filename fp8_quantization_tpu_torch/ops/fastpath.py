@@ -139,8 +139,7 @@ def pack_dense_caches(model, qc: QuantConfig, n_bits_w: Optional[int] = None):
         if (int(torch.round(site.mantissa_bits[0])) != mant
                 or int(site.sign_bits[0]) != 1):
             continue
-        w2 = w_q.to(torch.float32).reshape(-1, w_q.shape[-1])
-        pw = pack_weights(w2, w_bias, expo, mant)
+        pw = pack_weights(w_q.reshape(-1, w_q.shape[-1]), w_bias, expo, mant)
         layer.w_codes = pw.codes
         layer.w_pack_bias = pw.bias
         report[name] = float(pw.exact_fraction)

@@ -88,8 +88,11 @@ class QuantPhase:
     bf16 operands with f32 sums); ``packed`` has dense layers read 1-byte
     ExMy weight codes (``ops.fastpath.pack_dense_caches``) through the
     dequant GEMM kernel; ``chained`` (on top of ``packed``) passes
-    :class:`CodedFP` codes between layers. The re-estimation, gradient
-    scaling and fused-SDPA fields raise until their slices land.
+    :class:`CodedFP` codes between layers. ``fused_sdpa=True`` sends the
+    serving phases' attention through the fused SDPA (K7) and decode
+    attention (K6) kernels; ``None`` and ``False`` keep the einsum path, as
+    in the JAX package. The re-estimation and gradient-scaling fields raise
+    until their slices land.
     """
 
     phase: str = "fixed"  # "estimate" | "fixed"
@@ -109,8 +112,6 @@ class QuantPhase:
         for name in ("grad_scaling", "reestimate_bn"):
             if getattr(self, name):
                 raise NotImplementedError(f"QuantPhase.{name} {_LATER}")
-        if self.fused_sdpa:
-            raise NotImplementedError(f"the fused SDPA kernel (K7) {_LATER}")
 
     @property
     def estimating(self) -> bool:

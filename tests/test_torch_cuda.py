@@ -1,6 +1,6 @@
 """The CUDA kernels on the card against their plain PyTorch versions: K3
-(approximate-multiplier GEMM), K1 (bit-ops quantizer), K2 (fused quant GEMM)
-and K4 (packed-FP8 dequant GEMM).
+(approximate-multiplier GEMM), K1 (bit-ops quantizer), K2 (fused quant GEMM),
+K4 (packed-FP8 dequant GEMM), K7 (fused SDPA) and K6 (decode attention).
 
 Every test here needs a GPU (marker ``cuda``) and skips without one: the
 kernel has no CPU mode. The file imports neither JAX nor the JAX package, so
@@ -19,6 +19,12 @@ K2 and K4 sum the exact bf16 products in f32 in ascending k, as their plain
 versions do, so they must equal them exactly too; the stated tolerance of
 the port, ``K * 2^-24 * sum_k |x_k w_k|``, is what a different order could
 cost, and is checked as well.
+
+K7 and K6 sum in the order their plain versions take, and equal them where
+the two ``exp`` do; the stated tolerance is ``max|d| <= 2e-3 *
+max(1, max|plain|)``, the JAX attention tests' 2e-3, since an ``exp`` one
+ulp apart can move a probability one bf16 step. K7's requant epilogue must
+equal the plain ``quantize_block`` of the kernel's own context exactly.
 """
 
 import numpy as np
@@ -28,6 +34,8 @@ import torch
 from fp8_quantization_tpu_torch.numerics.codec import pack_exmy, quantize_exmy, value_space
 from fp8_quantization_tpu_torch.numerics.fp8_ste import quantize_to_fp8_ste
 from fp8_quantization_tpu_torch.ops.cuda import approx_matmul as k3
+from fp8_quantization_tpu_torch.ops.cuda import attention as k7
+from fp8_quantization_tpu_torch.ops.cuda import decode_attention as k6
 from fp8_quantization_tpu_torch.ops.cuda import dequant_matmul as k4
 from fp8_quantization_tpu_torch.ops.cuda import fused_matmul as k2
 
@@ -292,3 +300,87 @@ def test_gemm_kernels_reject_what_they_do_not_take(cuda):
                           mant_width=4)
     with pytest.raises(TypeError):
         k2.quantize_block(x.double(), 1.0, 5, 4, 1)
+
+
+def _assert_attention(ours, plain):
+    ours, plain = ours.float(), plain.float()
+    assert bool(torch.isfinite(ours).all())
+    err = float((ours - plain).abs().max())
+    assert err <= 2e-3 * max(1.0, float(plain.abs().max())), err
+
+
+# (B, T, S, H, HK, D, keyword arguments): Llama-3-8B's cold prefill chunk
+# and a warm slab with offsets, ViT-B/16's attention, unaligned shapes
+SDPA_SHAPES = {
+    "llama_chunk": (1, 112, 112, 32, 8, 128, dict(causal=True)),
+    "llama_slab_offsets": (2, 16, 300, 32, 8, 128, dict(causal=True, offsets=[100, 284])),
+    "vit": (2, 197, 197, 12, 12, 64, dict(s_valid=197)),
+    "unaligned": (2, 37, 53, 6, 2, 40, dict(s_valid=45)),
+    "unaligned_causal": (3, 70, 70, 4, 1, 24, dict(causal=True)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SDPA_SHAPES))
+def test_fused_sdpa_matches_plain(cuda, rng, name):
+    b, t, s, h, hk, d, kw = SDPA_SHAPES[name]
+    q = torch.from_numpy(rng.normal(size=(b, t, h, d)).astype(np.float32)).to(cuda)
+    k, v = (torch.from_numpy(rng.normal(size=(b, s, hk, d)).astype(np.float32)).to(cuda)
+            for _ in range(2))
+    if "offsets" in kw:
+        kw = {**kw, "offsets": torch.tensor(kw["offsets"], dtype=torch.int32, device=cuda)}
+    for out_dtype in (torch.float32, torch.bfloat16):
+        before = k7.fused_sdpa.launches
+        ours = k7.fused_sdpa(q, k, v, out_dtype=out_dtype, **kw)
+        torch.cuda.synchronize()
+        assert k7.fused_sdpa.launches == before + 1 and ours.dtype == out_dtype
+        _assert_attention(ours, k7.fused_sdpa_plain(q, k, v, out_dtype=out_dtype, **kw))
+    res = (torch.tensor(2.0, device=cuda), torch.tensor(5, device=cuda), 4, 1)
+    ctx = k7.fused_sdpa(q, k, v, **kw)
+    assert torch.equal(k7.fused_sdpa(q, k, v, res_params=res, **kw),
+                       k2.quantize_block_plain(ctx, *res))
+
+
+# (B, S, H, HK, D, lengths): Llama-3-8B's decode over a 2048-slot slab, an S
+# that is not a multiple of the 512-key block, and a slot of length 0
+DECODE_SHAPES = {
+    "llama": (4, 2048, 32, 8, 128, [1, 100, 1000, 2048]),
+    "s_not_a_block_multiple": (3, 700, 8, 2, 64, [1, 513, 700]),
+    "empty_slot": (2, 40, 4, 4, 24, [0, 17]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("coded", [False, True], ids=["bf16", "codes"])
+@pytest.mark.parametrize("name", list(DECODE_SHAPES))
+def test_decode_attention_matches_plain(cuda, rng, name, coded):
+    b, s, h, hk, d, lengths = DECODE_SHAPES[name]
+    q = torch.from_numpy(rng.normal(size=(b, h, d)).astype(np.float32)).to(cuda)
+    kf, vf = (torch.from_numpy(rng.normal(size=(b, s, hk, d)).astype(np.float32)).to(cuda)
+              for _ in range(2))
+    if coded:
+        kw = dict(k_bias=torch.tensor(4, dtype=torch.int32, device=cuda),
+                  v_bias=torch.tensor(5, dtype=torch.int32, device=cuda), kv_expo=3, kv_mant=4)
+        k_slab = pack_exmy(kf, 3, 4, kw["k_bias"], clip_of=True)
+        v_slab = pack_exmy(vf, 3, 4, kw["v_bias"], clip_of=True)
+    else:
+        kw, k_slab, v_slab = {}, kf.to(torch.bfloat16), vf.to(torch.bfloat16)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = k6.decode_attention.launches
+    ours = k6.decode_attention(q, k_slab, v_slab, lens, **kw)
+    torch.cuda.synchronize()
+    assert k6.decode_attention.launches == before + 1 and ours.dtype == torch.float32
+    _assert_attention(ours, k6.decode_attention_plain(q, k_slab, v_slab, lens, **kw))
+
+
+@pytest.mark.cuda
+def test_attention_kernels_reject_what_they_do_not_take(cuda):
+    q = torch.zeros((1, 4, 2, 512), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        k7.fused_sdpa(q, q, q)
+    with pytest.raises(ValueError):
+        k7.fused_sdpa(q[..., :8], q[..., :8].cpu(), q[..., :8])
+    slab = torch.zeros((1, 8, 2, 8), device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        k6.decode_attention(torch.zeros((1, 2, 8), device=cuda), slab, slab,
+                            torch.ones(1, dtype=torch.int32, device=cuda))

@@ -240,7 +240,7 @@ def test_later_slices_raise():
     uniform = tc.QuantConfig(method=tc.QMethod.symmetric_uniform)
     with pytest.raises(NotImplementedError, match="later slice"):
         fastpath.pack_dense_caches(torch.nn.Linear(2, 2), uniform)
-    for name in ("fused_sdpa", "grad_scaling", "reestimate_bn"):
+    for name in ("grad_scaling", "reestimate_bn"):
         with pytest.raises(NotImplementedError, match="later slice"):
             dataclasses.replace(tsites.FIXED, **{name: True})
     site = tsites.QuantSite(_qc(tc, False).act_quantizer(), _qc(tc, False).act_range)

@@ -145,8 +145,6 @@ def test_unported_pieces_raise():
     with pytest.raises(NotImplementedError):
         tsites.QuantPhase(phase="fixed", reestimate_bn=True)
     with pytest.raises(NotImplementedError):
-        tsites.QuantPhase(fused_sdpa=True)
-    with pytest.raises(NotImplementedError):
         tsites.QuantSite(tc.QuantizerConfig(method=tc.QMethod.symmetric_uniform),
                          tc.EstimatorConfig())
     with pytest.raises(NotImplementedError):

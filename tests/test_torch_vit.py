@@ -156,3 +156,34 @@ def test_unported_architecture_raises():
         tcli.build_model("resnet18_quantized", tc.QuantConfig(), torch.device("cpu"),
                          torch.Generator().manual_seed(0))
     assert dataclasses.asdict(TSpec()) == dataclasses.asdict(JSpec())
+
+
+def test_tiny_vit_fast_fused_sdpa_matches_jax():
+    """FAST with ``fused_sdpa=True``: the attention of every block through K7
+    (its plain version here; JAX's Pallas kernel in interpret mode), from one
+    calibrated state. The contract of the Llama test: the same top-1 and a
+    relative RMS below 1e-2 (the two sum in other orders, so a context on an
+    FP8 midpoint can land one grid step apart)."""
+    from fp8_quantization_tpu_torch.ops.cuda import attention as k7
+    from fp8_quantization_tpu_torch.quant.sites import QuantPhase
+
+    rng = np.random.default_rng(SEED)
+    calib, x = (rng.normal(size=(2, 32, 32, 3)).astype(np.float32) for _ in range(2))
+    jm = JViT(qc=_qc(jc, False), spec=JSpec(**TINY))
+    init = _jax_init()
+    calibrated = j_calibrate(jm, init, [calib], num_est_batches=1)
+    j_logits = np.asarray(jax.jit(lambda v, x: jm.apply(
+        v, x, JPhase(phase="fixed", fast=True, fused_sdpa=True)))(calibrated, jnp.asarray(x)))
+
+    tm = TViT(qc=_qc(tc, False), spec=TSpec(**TINY))
+    tm.load_state_dict(from_jax_variables(_numpy_tree(init)), strict=True)
+    t_calibrate(tm, [calib], num_est_batches=1)
+    launches = k7.fused_sdpa.launches
+    with torch.no_grad():
+        t_logits = tm(torch.from_numpy(x), QuantPhase(phase="fixed", fast=True,
+                                                      fused_sdpa=True)).float().numpy()
+    assert k7.fused_sdpa.launches == launches            # CPU tensors: plain version
+    assert np.isfinite(t_logits).all() and t_logits.shape == (2, 10)
+    rel = np.sqrt(((t_logits - j_logits) ** 2).mean()) / j_logits.std()
+    assert rel < 1e-2, rel
+    np.testing.assert_array_equal(t_logits.argmax(-1), j_logits.argmax(-1))
