@@ -20,7 +20,9 @@ Phases, one line each (any failure exits non-zero; no phase is skipped):
    warm 2048-key slab with offsets, ViT-B/16's attention, an unaligned shape
    and with its requant epilogue; the decode attention (K6) over Llama-3-8B's
    2048-slot slabs in bf16 and in uint8 codes, and at an S off its key
-   block. At the shapes of a batch-8 forward, in the configurations the main
+   block; the int4 nibble GEMM (K5) equal to its plain version at
+   Llama-3-8B's decode and prefill shapes and an unaligned one, timed beside
+   ``torch._int_mm``. At the shapes of a batch-8 forward, in the configurations the main
    path launches (K1 at every size it sees, K2 on bf16 x, K4 on bf16 and on
    coded x), checks each GEMM kernel against its plain version again and
    times it, its plain version and (for the GEMMs) cuBLAS, beside the card's
@@ -36,19 +38,25 @@ Phases, one line each (any failure exits non-zero; no phase is skipped):
    ``fused_sdpa=True``: 4 slots of 2048, greedy, prompts of 17, 100, 256 and
    511 tokens and a fifth of 64 admitted when a slot retires, 32 new tokens
    each; under FAST with a bf16 cache (K1, K2, K7, K6) and under PACKED with
-   a uint8 cache (K1, K4, K7, K6 on codes). Every run counts each kernel's
-   launches with the counts zeroed just before it and holds them to the
-   counts its shapes imply, and ``torch.profiler`` then splits a decode step
-   of each phase into device and host time. K7 and K6 are checked and
-   timed at every shape the FAST run gave them (the PACKED run's K6 on
-   codes likewise), beside their plain versions,
-   ``scaled_dot_product_attention`` and the card's bound.
+   a uint8 cache (K1, K4, K7, K6 on codes); then, that model freed, built
+   anew in the w4a8 configuration of ``scripts/bench_llama_big.py``
+   (4-bit per-channel weights, 8-bit acts, symmetric uniform), packed to
+   nibbles and served under PACKED with a bf16 cache (K5, K7, K6). Every
+   run counts each kernel's launches with the counts zeroed just before it
+   and holds them to the counts its shapes imply, and ``torch.profiler``
+   then splits a decode step of each phase into device and host time. K7,
+   K6 and K5 are checked and timed at every shape the runs gave them,
+   beside their plain versions, ``scaled_dot_product_attention`` or
+   ``torch._int_mm`` and the card's bound.
 5. model: full-width logits at depth 2 through the kernels and through their
    plain versions on the card, from one calibrated state: the approximate
    ViT; the published-flag ViT under PACKED and CHAINED from one packed
    state, and under FAST with ``fused_sdpa=True``; Llama-3-8B under
    FAST+fused and PACKED+packed_kv+fused (prefill logits, and the greedy
-   tokens of two prompts through the batcher).
+   tokens of two prompts through the batcher); Llama-3-8B in w4a8 under
+   PACKED+fused (logits and tokens equal, max |d| 0), and in
+   ``uniform_qc(8)`` under PACKED and CHAINED (bit-equal prefill and
+   decode-step logits).
 
 Before the last line it prints one JSON object with each kernel's launches,
 error, times and bound; the last line is
@@ -567,7 +575,8 @@ def plain_kernels():
     from fp8_quantization_tpu_torch.ops.cuda import decode_attention as k6
 
     swaps = [(fm, "quantize_block"), (fm, "fused_quant_matmul"), (k3, "approx_matmul"),
-             (dm, "dequant_matmul"), (k7, "fused_sdpa"), (k6, "decode_attention")]
+             (dm, "dequant_matmul"), (dm, "int4_matmul"), (k7, "fused_sdpa"),
+             (k6, "decode_attention")]
     saved = [getattr(mod, name) for mod, name in swaps]
     for mod, name in swaps:
         setattr(mod, name, getattr(mod, name + "_plain"))
@@ -681,6 +690,36 @@ def llama_qc():
         run_method=tc.RunMethodConfig(res_quantizer_flag=True, original_quantize_res=True))
 
 
+def llama_w4a8_qc():
+    """``scripts/bench_llama_big.py::int4_qc``: symmetric uniform 4-bit
+    per-channel current-minmax weights, 8-bit allminmax acts,
+    quantize-input, res-quantizer."""
+    from fp8_quantization_tpu_torch import config as tc
+
+    return tc.QuantConfig(
+        method=tc.QMethod.symmetric_uniform, n_bits=4, n_bits_act=8,
+        per_channel_weights=True, quantize_input=True,
+        weight_range=tc.EstimatorConfig(tc.RangeMethod.current_minmax),
+        act_range=tc.EstimatorConfig(tc.RangeMethod.allminmax),
+        run_method=tc.RunMethodConfig(res_quantizer_flag=True))
+
+
+def llama_int8_qc():
+    """``scripts/bench_llama.py::uniform_qc(8)``: the w4a8 configuration at
+    8 bits throughout."""
+    return dataclasses.replace(llama_w4a8_qc(), n_bits=8, n_bits_act=None)
+
+
+def llama_dense_shapes(spec):
+    """(name, K, N, launches per forward) of a Llama forward's projections."""
+    h, layers = spec.hidden_size, spec.num_layers
+    return [("q/o_proj", h, spec.num_heads * spec.head_dim, 2 * layers),
+            ("k/v_proj", h, spec.num_kv_heads * spec.head_dim, 2 * layers),
+            ("gate/up_proj", h, spec.mlp_dim, 2 * layers),
+            ("down_proj", spec.mlp_dim, h, layers),
+            ("lm_head", h, spec.vocab_size, 1)]
+
+
 def llama_k1_per_forward(spec):
     """K1 launches of one serving forward: the act and res sites of the
     seven projections and the K and V cache sites of every layer, and the
@@ -692,14 +731,14 @@ def llama_dense_per_forward(spec):
     return 7 * spec.num_layers + 1
 
 
-def calibrated_llama(spec, dev, seed):
+def calibrated_llama(spec, dev, seed, qc=None):
     """Seeded random weights made on the card, then ``calibrate_llama``:
     an ESTIMATE forward of a (2, 16) calibration batch and a FAST
-    ``cache_weights`` forward."""
+    ``cache_weights`` forward. ``qc`` defaults to the FP8 configuration."""
     from fp8_quantization_tpu_torch.models.llama import QuantizedLlama
     from fp8_quantization_tpu_torch.models.serving import calibrate_llama
 
-    model = QuantizedLlama(llama_qc(), spec, device=dev,
+    model = QuantizedLlama(qc or llama_qc(), spec, device=dev,
                            generator=torch.Generator(device=dev).manual_seed(seed))
     calibrate_llama(model, np.random.default_rng(10).integers(0, spec.vocab_size, (2, 16)))
     return model
@@ -717,11 +756,13 @@ def serving_phase(packed):
     return QuantPhase(phase="fixed", fast=True, packed=packed, fused_sdpa=True)
 
 
-def serve_llama(name, model, spec, qp, counters, dev):
+def serve_llama(name, model, spec, qp, counters, dev, per_forward):
     """Phase 4: the four prompts, then the fifth into the first slot that
     retires, 32 greedy tokens each, with every launch count zeroed just
-    before; the counts must be the ones the run's shapes imply. Returns the
-    run's record: stats, counts and the shapes K7 and K6 saw."""
+    before; the counts must be the ones the run's shapes imply: K7 once a
+    layer per admission, K6 once a layer per step, ``per_forward`` (kernel
+    -> launches) per forward and no other kernel. Returns the run's record:
+    stats, counts and the shapes the kernels saw."""
     from fp8_quantization_tpu_torch.models.serving import ContinuousBatcher, _pad_to_bucket
 
     prompts = llama_prompts(spec)
@@ -761,11 +802,9 @@ def serve_llama(name, model, spec, qp, counters, dev):
     run["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     steps, admissions = len(run["step_s"]), len(run["chunks"])
     forwards = steps + admissions
-    dense = "K4" if qp.packed else "K2"
-    expected = {"K1": llama_k1_per_forward(spec) * forwards, "K3": 0,
-                "K2": 0, "K4": 0, "K6": spec.num_layers * steps,
-                "K7": spec.num_layers * admissions}
-    expected[dense] = llama_dense_per_forward(spec) * forwards
+    expected = {key: 0 for key in counters}
+    expected.update({key: n * forwards for key, n in per_forward.items()})
+    expected.update(K6=spec.num_layers * steps, K7=spec.num_layers * admissions)
     outputs = run["outputs"]
     ok = (counts == expected and sorted(outputs) == list(range(len(prompts)))
           and all(len(o) == LLAMA_NEW_TOKENS and all(0 <= t < spec.vocab_size for t in o)
@@ -981,47 +1020,232 @@ def time_llama_attention(spec, dev, run, coded, worst):
     return out
 
 
+# the dense int8 tensor-core peak of the H100 SXM data sheet: the least time
+# for an integer GEMM's 2MKN operations
+INT8_TC_OPS_PER_S = 1979e12
+# K5 in phase 3: Llama-3-8B's decode projections (k/v, gate/up, down) and
+# lm_head at M = 4 slots, a 512-token prefill chunk, and a shape with odd K
+# and M, N off any tile
+K5_SHAPES = ((4, 4096, 1024), (4, 4096, 14336), (4, 14336, 4096), (4, 4096, 128256),
+             (512, 4096, 14336), (9, 97, 136))
+
+
+def int4_operands(gen, m, k, n, dev):
+    """x codes over the full int8 range, w codes over [-8, 7] (their
+    extremes in the first row and column), the nibble-packed w, and w as
+    int8 for the library call."""
+    from fp8_quantization_tpu_torch.ops.fastpath import pack_int4
+
+    x = torch.randint(-128, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+    w = torch.randint(-8, 8, (k, n), generator=gen, device=dev, dtype=torch.int8)
+    x[0] = -128
+    w[:, 0] = -8
+    return x, pack_int4(w), w
+
+
+def _int_mm_library(x, w):
+    """``torch._int_mm`` of the same codes (the yardstick; the port calls it
+    only for the int8 layers' product): it takes more than 16 rows and K, N
+    multiples of 8, so x is padded to 32 rows and K, N to multiples of 8
+    ahead of the timed call. Returns the callable, or None where it cannot
+    run."""
+    m, k = x.shape
+    n = w.shape[1]
+    if k % 8 or n % 8:
+        return None
+    xp = torch.nn.functional.pad(x, (0, 0, 0, max(32, m) - m)) if m <= 16 else x
+    return lambda: torch._int_mm(xp, w)
+
+
+def time_k5(dm, dev, gen, m, k, n, w=None):
+    """K5 at one shape against its plain version (equal, max |d| 0), then
+    timed: kernel (CUDA events, mean of 5 after a warm-up), plain (1 run),
+    ``torch._int_mm`` on the unpacked codes and the bound, the larger of
+    (M K + ceil(K/2) N + 4 M N) bytes over HBM bandwidth and 2 M K N over the
+    int8 tensor-core peak. ``w`` reuses (w4, w int8) of this (K, N)."""
+    x = torch.randint(-128, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+    x[0] = -128
+    if w is None:
+        _, w4, w8 = int4_operands(gen, 1, k, n, dev)
+    else:
+        w4, w8 = w
+    ours = dm.int4_matmul(x, w4, k=k)
+    plain = dm.int4_matmul_plain(x, w4, k=k)
+    if not torch.equal(ours, plain):
+        err = int((ours.long() - plain.long()).abs().max())
+        raise SystemExit(f"K5 differs from its plain version at {m}x{k}x{n}: max|d| {err}")
+    del ours, plain
+    ms = cuda_ms(lambda: dm.int4_matmul(x, w4, k=k), 5, SHORT_HEAD_START)
+    plain_ms = cuda_ms(lambda: dm.int4_matmul_plain(x, w4, k=k), 1)
+    lib = _int_mm_library(x, w8)
+    lib_ms = cuda_ms(lib, 5, SHORT_HEAD_START) if lib is not None else None
+    bytes_ms = 1e3 * (m * k + -(-k // 2) * n + 4 * m * n) / HBM_BYTES_PER_S
+    ops_ms = 1e3 * 2 * m * k * n / INT8_TC_OPS_PER_S
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bytes_ms=bytes_ms, ops_ms=ops_ms)
+
+
+def check_k5(dm, dev):
+    """Phase 3: K5 equal to its plain version at Llama-3-8B's shapes and an
+    unaligned one, each timed beside its plain version, ``torch._int_mm``
+    and the bound."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    for m, k, n in K5_SHAPES:
+        t = time_k5(dm, dev, gen, m, k, n)
+        lib = f"{t['library_ms']:.4f}" if t["library_ms"] is not None else "n/a (K, N not 8-aligned)"
+        phase("kernels", f"K5 {m}x{k}x{n}: equal to plain (max|d| 0); kernel {t['ms']:.4f} ms, "
+                         f"plain {t['plain_ms']:.4f} ms, torch._int_mm {lib} ms, bound "
+                         f"{max(t['bytes_ms'], t['ops_ms']):.4f} ms "
+                         f"({2 * m * k * n / t['ms'] / 1e9:.4g} TOP/s)")
+
+
+def time_llama_k5(spec, dev, run, worst):
+    """K5 at every shape one w4a8 serving run gave it: each projection at
+    M = each admission's chunk and at M = 4 slots per decode step, held
+    against its plain version once more and timed (``time_k5``). Totals are
+    per run: each shape's times x its launches in the run."""
+    from fp8_quantization_tpu_torch.ops.cuda import dequant_matmul as dm
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rows = {}
+    for t in run["chunks"]:
+        rows[t] = rows.get(t, 0) + 1
+    rows[LLAMA_SLOTS] = rows.get(LLAMA_SLOTS, 0) + len(run["step_s"])
+    total, per_step = {}, {}
+    for name, k, n, per_forward in llama_dense_shapes(spec):
+        _, w4, w8 = int4_operands(gen, 1, k, n, dev)
+        for m, forwards in sorted(rows.items()):
+            t = time_k5(dm, dev, gen, m, k, n, w=(w4, w8))
+            _add(total, forwards * per_forward, **t)
+            if m == LLAMA_SLOTS:
+                _add(per_step, per_forward, **t)
+        del w4, w8
+        torch.cuda.empty_cache()
+    worst["K5"] = 0.0   # time_k5 stops the run at any difference
+    step = _finish(per_step)
+    phase("kernels", f"K5 per decode step (M={LLAMA_SLOTS}, {llama_dense_per_forward(spec)} "
+                     f"launches): kernel "
+                     f"{step['ms']:.3f} ms, plain {step['plain_ms']:.3f} ms, torch._int_mm "
+                     f"{step['library_ms']:.3f} ms, bound {step['bound_ms']:.3f} ms "
+                     f"({step['bound_by']})")
+    out = _finish(total)
+    phase("kernels", f"K5 over the w4a8 run ({sum(rows.values())} forwards, M in "
+                     f"{sorted(rows)}): kernel {out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms, "
+                     f"torch._int_mm {out['library_ms']:.3f} ms, bound {out['bound_ms']:.3f} ms "
+                     f"({out['bound_by']})")
+    return out
+
+
+def depth2_prefill(model, spec, qp, dev, decode_step=False):
+    """Phase 5: the prefill logits (f32) of the second prompt as one
+    right-padded chunk into an empty cache of the model's layout, then with
+    ``decode_step`` the logits of one more token after it."""
+    from fp8_quantization_tpu_torch.models.llama import KVCache
+    from fp8_quantization_tpu_torch.models.serving import _pad_to_bucket
+
+    prompt = llama_prompts(spec)[1]
+    real = len(prompt)
+    tokens = torch.zeros((1, _pad_to_bucket(real)), dtype=torch.long, device=dev)
+    tokens[0, :real] = torch.tensor(prompt, device=dev)
+    kv = torch.uint8 if model.packed_kv else torch.bfloat16
+    cache = KVCache.zeros(spec, 1, LLAMA_MAX_SEQ, dtype=kv, device=dev)
+    with torch.no_grad():
+        logits, cache = model(tokens, cache, qp, chunk_attention=True)
+        out = [logits[0, :real].float()]
+        if decode_step:
+            nxt = logits[:, real - 1].argmax(-1, keepdim=True)
+            out.append(model(nxt, cache, qp)[0][0].float())
+    return out
+
+
+def depth2_generate(model, spec, qp):
+    """Phase 5: the greedy tokens of the first two prompts, 8 each, through
+    a two-slot batcher."""
+    from fp8_quantization_tpu_torch.models.serving import ContinuousBatcher
+
+    batcher = ContinuousBatcher(model, spec, slots=2, max_seq=LLAMA_MAX_SEQ, qp=qp)
+    slots = [batcher.admit(p, max_new_tokens=8) for p in llama_prompts(spec)[:2]]
+    batcher.run_to_completion()
+    return [batcher.retire(s) for s in slots]
+
+
+def check_llama_uniform(dev, counters):
+    """Phase 5: full-width Llama-3-8B at depth 2 in the uniform
+    configurations. w4a8 PACKED+fused on a bf16 cache through the kernels
+    (K5, K7, K6) and through their plain versions, from one calibrated and
+    packed state: equal prefill logits (max |d| 0: K5 is exact and K7, K6
+    equal their plain versions) and equal greedy tokens. Then
+    ``uniform_qc(8)`` under PACKED and CHAINED (``Coded`` int8 activations
+    between layers): bit-equal prefill and decode-step logits."""
+    from fp8_quantization_tpu_torch.models.llama import LLAMA3_8B
+    from fp8_quantization_tpu_torch.models.serving import pack_llama
+    from fp8_quantization_tpu_torch.quant.sites import QuantPhase
+
+    spec = dataclasses.replace(LLAMA3_8B, num_layers=2)
+    model = calibrated_llama(spec, dev, seed=1, qc=llama_w4a8_qc())
+    pack_llama(model)
+    qp = serving_phase(True)
+    zero_counts(counters)
+    logits, toks = depth2_prefill(model, spec, qp, dev)[0], depth2_generate(model, spec, qp)
+    counts = read_counts(counters)
+    with plain_kernels():
+        plain_logits, plain_toks = (depth2_prefill(model, spec, qp, dev)[0],
+                                    depth2_generate(model, spec, qp))
+    diff = float((logits - plain_logits).abs().max())
+    ok = (torch.equal(logits, plain_logits) and toks == plain_toks
+          and bool(torch.isfinite(logits).all()) and logits.shape[1] == spec.vocab_size
+          and min(counts["K5"], counts["K7"], counts["K6"]) > 0
+          and counts["K1"] == counts["K2"] == counts["K4"] == 0
+          and read_counts(counters) == counts and not model.packed_kv)
+    phase("model", f"Llama-3-8B width {spec.hidden_size}, depth 2, w4a8 PACKED+fused, bf16 KV: "
+                   f"prefill logits ({logits.shape[0]} tokens) max|kernel - plain| {diff:.3g}; "
+                   f"greedy tokens {toks} {'equal' if toks == plain_toks else 'DIFFER: ' + str(plain_toks)}"
+                   f"; launches {counts}; ok={ok}")
+    if not ok:
+        raise SystemExit("Llama depth 2 w4a8: kernels and plain versions disagree")
+    del model
+    torch.cuda.empty_cache()
+
+    model = calibrated_llama(spec, dev, seed=1, qc=llama_int8_qc())
+    pack_llama(model)
+    chained = QuantPhase(phase="fixed", fast=True, packed=True, chained=True, fused_sdpa=True)
+    zero_counts(counters)
+    packed_out = depth2_prefill(model, spec, serving_phase(True), dev, decode_step=True)
+    chained_out = depth2_prefill(model, spec, chained, dev, decode_step=True)
+    counts = read_counts(counters)
+    ok = (all(torch.equal(a, b) for a, b in zip(packed_out, chained_out))
+          and all(bool(torch.isfinite(a).all()) for a in packed_out)
+          and counts["K7"] > 0 and counts["K6"] > 0 and counts["K5"] == 0)
+    phase("model", f"Llama-3-8B width {spec.hidden_size}, depth 2, uniform_qc(8): PACKED and "
+                   f"CHAINED prefill and decode-step logits bit-equal {ok} (max|d| "
+                   f"{max(float((a - b).abs().max()) for a, b in zip(packed_out, chained_out)):.3g}"
+                   f"); launches {counts}")
+    if not ok:
+        raise SystemExit("Llama depth 2 int8: CHAINED differs from PACKED")
+    del model
+    torch.cuda.empty_cache()
+
+
 def check_llama_model(dev, counters):
     """Phase 5: full-width Llama-3-8B at depth 2 through the kernels and
     through their plain versions, from one calibrated state, under FAST+fused
     and then (packed and stripped in place) PACKED+packed_kv+fused: prefill
     logits within a relative RMS of 1e-2 with the same argmax, and the same
     greedy tokens of two prompts through the batcher."""
-    from fp8_quantization_tpu_torch.models.llama import LLAMA3_8B, KVCache
-    from fp8_quantization_tpu_torch.models.serving import (
-        ContinuousBatcher,
-        _pad_to_bucket,
-        pack_llama,
-    )
+    from fp8_quantization_tpu_torch.models.llama import LLAMA3_8B
+    from fp8_quantization_tpu_torch.models.serving import pack_llama
 
     spec = dataclasses.replace(LLAMA3_8B, num_layers=2)
     model = calibrated_llama(spec, dev, seed=1)
-    prompts = llama_prompts(spec)[:2]
-    real = len(prompts[1])
-    tokens = torch.zeros((1, _pad_to_bucket(real)), dtype=torch.long, device=dev)
-    tokens[0, :real] = torch.tensor(prompts[1], device=dev)
     for name, packed in (("FAST+fused", False), ("PACKED+packed_kv+fused", True)):
         if packed:
             pack_llama(model)
         qp = serving_phase(packed)
-        kv = torch.uint8 if packed else torch.bfloat16
-
-        def prefill():
-            cache = KVCache.zeros(spec, 1, LLAMA_MAX_SEQ, dtype=kv, device=dev)
-            with torch.no_grad():
-                return model(tokens, cache, qp, chunk_attention=True)[0][0, :real].float()
-
-        def generate():
-            batcher = ContinuousBatcher(model, spec, slots=2, max_seq=LLAMA_MAX_SEQ, qp=qp)
-            slots = [batcher.admit(p, max_new_tokens=8) for p in prompts]
-            batcher.run_to_completion()
-            return [batcher.retire(s) for s in slots]
-
         zero_counts(counters)
-        logits, toks = prefill(), generate()
+        logits, toks = depth2_prefill(model, spec, qp, dev)[0], depth2_generate(model, spec, qp)
         counts = read_counts(counters)
         with plain_kernels():
-            plain_logits, plain_toks = prefill(), generate()
+            plain_logits, plain_toks = (depth2_prefill(model, spec, qp, dev)[0],
+                                        depth2_generate(model, spec, qp))
         dense = "K4" if packed else "K2"
         if (min(counts["K7"], counts["K6"], counts[dense], counts["K1"]) == 0
                 or read_counts(counters) != counts):
@@ -1031,9 +1255,9 @@ def check_llama_model(dev, counters):
         rel = float(((logits - plain_logits) ** 2).mean().sqrt() / plain_logits.std())
         same = bool((logits.argmax(-1) == plain_logits.argmax(-1)).all())
         ok = (bool(torch.isfinite(logits).all()) and rel < 1e-2 and same
-              and toks == plain_toks and tuple(logits.shape) == (real, spec.vocab_size))
+              and toks == plain_toks and logits.shape[1] == spec.vocab_size)
         phase("model", f"Llama-3-8B width {spec.hidden_size}, depth 2, {name}: prefill logits "
-                       f"({real} tokens) max|kernel - plain| {diff:.3g}, relative RMS "
+                       f"({logits.shape[0]} tokens) max|kernel - plain| {diff:.3g}, relative RMS "
                        f"{rel:.3g}, same argmax {same}; greedy tokens {toks} "
                        f"{'equal' if toks == plain_toks else 'DIFFER: ' + str(plain_toks)}; "
                        f"launches {counts}; ok={ok}")
@@ -1083,8 +1307,10 @@ def run_llama_serving(dev, counters):
     phase("main", f"Llama-3-8B: {params / 1e9:.3f} B parameters, built and calibrated in "
                   f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated(dev) / 1e9:.2f}"
                   f" GB allocated")
+    k1 = llama_k1_per_forward(spec)
+    dense = llama_dense_per_forward(spec)
     runs = {"fast": serve_llama("FAST+fused, bf16 KV", model, spec, serving_phase(False),
-                                counters, dev)}
+                                counters, dev, {"K1": k1, "K2": dense})}
     profile_decode("FAST+fused", model, spec, serving_phase(False), dev)
     t0 = time.perf_counter()
     report = pack_llama(model)
@@ -1094,11 +1320,48 @@ def run_llama_serving(dev, counters):
                   f"channel fraction {min(report.values()):.3f}..{max(report.values()):.3f}), "
                   f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated")
     runs["packed"] = serve_llama("PACKED+packed_kv+fused, uint8 KV", model, spec,
-                                 serving_phase(True), counters, dev)
+                                 serving_phase(True), counters, dev, {"K1": k1, "K4": dense})
     profile_decode("PACKED+packed_kv+fused", model, spec, serving_phase(True), dev)
     del model
     torch.cuda.empty_cache()
     return spec, runs
+
+
+def run_llama_w4a8(dev, counters):
+    """Phase 4 for Llama-3-8B in w4a8 (``scripts/bench_llama_big.py``'s
+    ``int4_qc``), after the FP8 model is freed: built and calibrated anew,
+    packed to nibble codes by ``pack_llama`` (the KV cache stays bf16), and
+    served as the FP8 runs are, every projection and ``lm_head`` through
+    K5."""
+    from fp8_quantization_tpu_torch.models.llama import LLAMA3_8B
+    from fp8_quantization_tpu_torch.models.serving import pack_llama
+
+    spec = LLAMA3_8B
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = calibrated_llama(spec, dev, seed=0, qc=llama_w4a8_qc())
+    torch.cuda.synchronize()
+    calib_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    phase("main", f"Llama-3-8B w4a8: built and calibrated in {time.perf_counter() - t0:.1f} s, "
+                  f"peak {calib_gb:.2f} GB (f32 weight caches of the uniform grids)")
+    t0 = time.perf_counter()
+    report = pack_llama(model)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    phase("main", f"packed {len(report)} layers to nibbles in {time.perf_counter() - t0:.1f} s "
+                  f"(bit-exact channel fraction {min(report.values()):.3f}.."
+                  f"{max(report.values()):.3f}), packed_kv {model.packed_kv}, "
+                  f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated")
+    if model.packed_kv or min(report.values()) != 1.0:
+        raise SystemExit("w4a8 packing: a channel is not bit-exact or the cache is not bf16")
+    qp = serving_phase(True)
+    run = serve_llama("w4a8 PACKED+fused, bf16 KV", model, spec, qp, counters, dev,
+                      {"K5": llama_dense_per_forward(spec)})
+    run["calib_peak_gb"] = calib_gb
+    profile_decode("w4a8 PACKED+fused", model, spec, qp, dev)
+    del model
+    torch.cuda.empty_cache()
+    return run
 
 
 def main() -> int:
@@ -1146,6 +1409,7 @@ def main() -> int:
     gemm_err = check_gemms(fm, dm, dev)
     gemm_err["K1"] = check_k1(fm, dev)
     gemm_err.update(check_attention(LLAMA3_8B, dev))
+    check_k5(dm, dev)
 
     # 4. the main path: each run with every launch count zeroed just before
     counters = KERNELS
@@ -1180,6 +1444,9 @@ def main() -> int:
     times.update(time_llama_attention(llama_spec, dev, llama["fast"], False, gemm_err))
     times["K6 codes"] = time_llama_attention(llama_spec, dev, llama["packed"], True,
                                              gemm_err)["K6"]
+    # the same served in w4a8 through K5, timed at the shapes it gave K5
+    llama["w4a8"] = run_llama_w4a8(dev, counters)
+    times["K5"] = time_llama_k5(llama_spec, dev, llama["w4a8"], gemm_err)
 
     # 5. whole-model checks at full width, depth 2, batch 1
     depth2 = dataclasses.replace(VIT_B_16, num_layers=2)
@@ -1187,6 +1454,7 @@ def main() -> int:
     check_serving_model(cli, dev, depth2, counters)
     check_vit_fused(cli, dev, depth2, counters)
     check_llama_model(dev, counters)
+    check_llama_uniform(dev, counters)
 
     # launches: each kernel's count in the main-path run that drives it in
     # the configuration timed above (K4: bf16 x, as --packed-weights runs it;
@@ -1200,6 +1468,9 @@ def main() -> int:
          approx_counts["K3"], max_err),
         ("dequant_matmul", "K4", "dequant_matmul.cu", "dequant_matmul.py:269",
          serving["packed"][2]["K4"], gemm_err["K4"]),
+        # per w4a8 serving run of Llama-3-8B
+        ("int4_matmul", "K5", "int4_matmul.cu", "dequant_matmul.py:78",
+         llama["w4a8"]["counts"]["K5"], gemm_err["K5"]),
         # per FAST serving run of Llama-3-8B (bf16 cache)
         ("decode_attention", "K6", "decode_attention.cu", "decode_attention.py:101",
          llama["fast"]["counts"]["K6"], gemm_err["K6"]),
@@ -1229,7 +1500,8 @@ def main() -> int:
         f"{r['peak_gb']:.2f} GB" for mode, r in llama.items())
     phase("done", f"ms/img: approx {approx_ms:.2f}, published {pub_ms:.2f}, "
                   + ", ".join(f"{mode} {serving[mode][1]:.2f}" for mode in SERVING_FLAGS)
-                  + f"; {served}; per batch-{BATCH} forward (K1-K4) or serving run (K6, K7): "
+                  + f"; {served}; per batch-{BATCH} forward (K1-K4) or serving run (K5, K6, "
+                  "K7): "
                   f"{per_forward}; {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -26,6 +26,7 @@ import time
 import torch
 
 from . import LATER as _LATER
+from . import LATER_CNN
 from .config import (
     ApproxConfig,
     EstimatorConfig,
@@ -277,6 +278,14 @@ def setup(args):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     qc = config_from_args(args)
+    if args.packed_weights:
+        from .ops.fastpath import int8_conv_codes
+
+        if int8_conv_codes(qc):
+            # ViT's patch-embedding conv would take int8 codes
+            raise NotImplementedError(
+                "--packed-weights with a per-tensor uniform act quantizer on quantized "
+                f"inputs (int8 conv serving, quantized_conv_int8) {LATER_CNN}")
     generator = torch.Generator().manual_seed(args.seed or 0)
     model, example = build_model(args.architecture, qc, device, generator)
     # the JAX CLI initializes its variables with an ESTIMATE-phase forward of

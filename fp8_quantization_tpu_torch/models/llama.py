@@ -2,10 +2,12 @@
 ``models/llama.py``.
 
 * every projection (q/k/v/o, gate/up/down, lm_head) is a ``QuantDense`` with
-  the calibrate-then-freeze FP8 sites;
+  the calibrate-then-freeze sites, FP8 or uniform (int8, w4a8);
 * K and V pass through their own sites (``k_cache_quantizer``,
-  ``v_cache_quantizer``) before they are cached, as bf16 grid values or, with
-  ``packed_kv``, as 1-byte ExMy codes on the sites' packing biases;
+  ``v_cache_quantizer``) before they are cached, as bf16 values (exact for
+  FP8 grids, rounded for uniform ones, as in the JAX package) or, with
+  ``packed_kv`` (FP8 only), as 1-byte ExMy codes on the sites' packing
+  biases;
 * one call handles a prefill chunk (T tokens) or a decode step (T=1) over a
   ``KVCache`` of fixed-capacity slots with per-slot lengths.
 

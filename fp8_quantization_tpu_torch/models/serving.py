@@ -10,9 +10,10 @@ device and is written in place (the JAX package donates its buffer);
 host-side bookkeeping touches only tokens and lengths.
 
 ``calibrate_llama`` then ``pack_llama`` are the calibrate-then-serve
-sequence of ``scripts/bench_llama.py``: an ESTIMATE forward on a calibration
-batch and a FAST ``cache_weights`` forward, then for the packed phases the
-weight codes with the f32 kernels and bf16 caches dropped.
+sequence of ``scripts/bench_llama.py`` and ``scripts/bench_llama_big.py``:
+an ESTIMATE forward on a calibration batch and a FAST ``cache_weights``
+forward, then for the packed phases the weight codes with the f32 kernels
+and weight caches dropped.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from .. import LATER as _LATER
+from ..config import QMethod
 from ..quant.sites import ESTIMATE, FIXED, QuantPhase
 from .llama import KVCache, LlamaSpec
 from .sampling import GREEDY, SamplingParams, sample_tokens
@@ -40,7 +42,9 @@ def _device(model) -> torch.device:
 def calibrate_llama(model, calib_tokens):
     """Calibrate ``model`` in place and make it ready to serve the FAST
     phases: an ``ESTIMATE`` forward of ``calib_tokens`` (B, T), then a fast
-    ``cache_weights`` forward that stores every projection's bf16 weights.
+    ``cache_weights`` forward that stores every projection's quantized
+    weights (bf16 for the FP quantizer, f32 for the uniform ones, whose
+    grids bf16 does not hold).
     Each forward writes a fresh zero cache of 64 slots per row (at least T),
     as ``scripts/bench_llama.py`` calibrates."""
     dev = _device(model)
@@ -56,15 +60,19 @@ def calibrate_llama(model, calib_tokens):
 
 
 def pack_llama(model):
-    """Switch a calibrated ``model`` to the PACKED phases in place: 1-byte
-    weight codes (``pack_dense_caches``), the f32 kernels and bf16 caches
-    dropped (``strip_packed_params``) and a uint8 KV cache (``packed_kv``).
+    """Switch a calibrated ``model`` to the PACKED phases in place: weight
+    codes (``pack_dense_caches``: 1-byte ExMy codes for the FP quantizer,
+    int8 or nibble-packed int4 codes for the uniform ones), the f32 kernels
+    and weight caches dropped (``strip_packed_params``) and, where the act
+    quantizer is FP, a uint8 KV cache (``packed_kv``). Uniform act grids
+    keep the bf16 cache, as the JAX package serves them
+    (``scripts/bench_llama.py``): ``packed_kv`` needs an ExMy grid.
     Returns the packing report (layer -> bit-exact channel fraction)."""
     from ..ops.fastpath import pack_dense_caches, strip_packed_params
 
     _, report = pack_dense_caches(model, model.qc)
     strip_packed_params(model)
-    model.packed_kv = True
+    model.packed_kv = model.qc.act_quantizer().method == QMethod.fp_quantizer
     return report
 
 

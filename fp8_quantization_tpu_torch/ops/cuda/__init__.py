@@ -10,6 +10,7 @@ KERNELS = {
     "K2": fused_matmul.fused_quant_matmul,
     "K3": approx_matmul.approx_matmul,
     "K4": dequant_matmul.dequant_matmul,
+    "K5": dequant_matmul.int4_matmul,
     "K6": decode_attention.decode_attention,
     "K7": attention.fused_sdpa,
 }

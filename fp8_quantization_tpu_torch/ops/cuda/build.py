@@ -22,7 +22,8 @@ from typing import Dict, Iterable
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("approx_matmul", "fused_matmul", "dequant_matmul", "attention", "decode_attention")
+SOURCES = ("approx_matmul", "fused_matmul", "dequant_matmul", "int4_matmul", "attention",
+           "decode_attention")
 
 # -fmad=false keeps every multiply and add separately rounded, as in the
 # plain PyTorch versions; no --use_fast_math (it flushes subnormals)

@@ -1,10 +1,11 @@
-"""Packed-FP8 weight storage and the fused dequantize -> matmul GEMM (K4):
-wrapper of the CUDA kernel in ``csrc/dequant_matmul.cu`` and its plain
-PyTorch version.
+"""Packed-FP8 weight storage and the fused dequantize -> matmul GEMM (K4),
+and the int4 nibble GEMM (K5): wrappers of the CUDA kernels in
+``csrc/dequant_matmul.cu`` and ``csrc/int4_matmul.cu`` and their plain
+PyTorch versions.
 
-Replaces ``fp8_quantization_tpu/ops/pallas/dequant_matmul.py::dequant_matmul``
-and takes the same arguments; ``PackedWeights``, ``pack_weights`` and
-``unpack_weights`` are ported from the same module. Weights live on the
+Replace ``fp8_quantization_tpu/ops/pallas/dequant_matmul.py::dequant_matmul``
+and ``::int4_matmul`` and take the same arguments; ``PackedWeights``,
+``pack_weights`` and ``unpack_weights`` are ported from the same module. Weights live on the
 device as 1-byte ExMy codes (``s:1 | e:E | m:M``) with a per-channel packing
 bias and are decoded inside the kernel. A tensor on the CPU takes the plain
 version; a CUDA tensor launches the kernel or raises.
@@ -212,3 +213,67 @@ def dequant_matmul(x, w_codes, w_bias, *, expo_width: int, mant_width: int,
 
 
 dequant_matmul.launches = 0
+
+
+# K5 sums 16 x each product in int32 (see csrc/int4_matmul.cu)
+INT4_MAX_K = 65536
+
+
+def _check_int4(x_codes, w4, k: int):
+    if (x_codes.ndim != 2 or w4.ndim != 2 or x_codes.shape[1] != k
+            or w4.shape[0] != -(-k // 2)):
+        raise ValueError(f"bad shapes {tuple(x_codes.shape)} @ packed {tuple(w4.shape)} "
+                         f"for k={k}")
+    if x_codes.dtype != torch.int8 or w4.dtype != torch.uint8:
+        raise TypeError(f"int4_matmul takes int8 x codes and uint8 nibble pairs, got "
+                        f"{x_codes.dtype} and {w4.dtype}")
+
+
+def int4_matmul_plain(x_codes, w4, *, k: int):
+    """K5's plain version, the JAX package's off-TPU branch: unpack the
+    nibbles (``fastpath.unpack_int4``) and take the exact int32 product
+    (``fastpath.int8_matmul``)."""
+    from ..fastpath import int8_matmul, unpack_int4
+
+    _check_int4(x_codes, w4, k)
+    return int8_matmul(x_codes, unpack_int4(w4, k))
+
+
+@functools.lru_cache(maxsize=None)
+def _int4_lib():
+    fn = build.load("int4_matmul").fp8q_int4_matmul
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def int4_matmul(x_codes, w4, *, k: int):
+    """K5: int8 activation codes times nibble-packed int4 weight codes, the
+    exact int32 product ``x_codes @ unpack_int4(w4, k)``.
+
+    x_codes: (M, K) int8 (``fastpath.quantize_acts_int8``); w4: (ceil(K/2), N)
+    uint8 from ``fastpath.pack_int4`` (split-K halves). Returns (M, N) int32;
+    the zero points and scales are the caller's (``quantized_matmul_int8``
+    with ``acc=``). ``int4_matmul.launches`` counts kernel launches.
+    """
+    if x_codes.device.type == "cpu":
+        return int4_matmul_plain(x_codes, w4, k=k)
+    _check_int4(x_codes, w4, k)
+    dev = _require_cuda("int4_matmul", x_codes, w4)
+    if k > INT4_MAX_K:
+        raise ValueError(f"int4_matmul takes K <= {INT4_MAX_K}, got {k}")
+    m, n = x_codes.shape[0], w4.shape[1]
+    if m == 0 or n == 0 or k == 0:
+        return torch.zeros((m, n), dtype=torch.int32, device=dev)
+    out = torch.empty((m, n), dtype=torch.int32, device=dev)
+    x_codes, w4 = x_codes.contiguous(), w4.contiguous()
+    with torch.cuda.device(dev):
+        err = _int4_lib()(x_codes.data_ptr(), w4.data_ptr(), out.data_ptr(), m, n, k,
+                          _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"int4_matmul kernel launch failed: CUDA error {err}")
+    int4_matmul.launches += 1
+    return out
+
+
+int4_matmul.launches = 0

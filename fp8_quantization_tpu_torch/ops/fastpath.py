@@ -1,15 +1,22 @@
-"""Inference fast path, FP part (port of ``ops/fastpath.py``): frozen
-per-tensor quantizer scalars, the fused quantized matmul, and the byte
-packing of cached dense weights for the packed-FP8 serving path.
+"""Inference fast path (port of ``ops/fastpath.py``): frozen per-tensor
+quantizer scalars, the fused quantized matmul, the integer serving path of
+the uniform quantizers, and the packing of cached dense weights.
 
-``finalize_dense`` turns a calibrated ``QuantDense`` into fast-path params:
-weights pre-quantized onto their ExMy grid as bfloat16 (exact for
+``finalize_dense`` turns a calibrated FP ``QuantDense`` into fast-path
+params: weights pre-quantized onto their ExMy grid as bfloat16 (exact for
 mant_width <= 7) and per-tensor act/res quantizers reduced to
 ``(maxval, bias, mant, sign)`` scalars. ``quantized_matmul`` is the fast
 mode's one dense product: the fused quant GEMM (K2), with the bit-ops
 quantizer (K1) on x on the load and on the result. ``QuantDense`` runs it
-under ``fast``. The uniform (int8/int4) serving currency belongs to a later
-slice and raises.
+under ``fast``.
+
+Uniform quantizers serve on integer codes: ``pack_dense_caches`` stores a
+dense layer's weights as int8 codes (``w_i8*``) or, at 4 bits or fewer, as
+nibble pairs (``w_i4*``, :func:`pack_int4`); ``quantize_acts_int8`` turns
+the input into int8 codes on the act site's grid; the product sums exactly
+in int32 (:func:`int8_matmul`, or the nibble GEMM K5 for ``w_i4``) and
+``quantized_matmul_int8`` scales it back. The int8 convolution and the
+``Affine`` boundary belong to the CNN slice.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .. import LATER as _LATER
+from .. import LATER_CNN
 from ..config import QMethod, QuantConfig
 from ..numerics.rounding import to_int32
 from ..quant import quantizers
@@ -54,22 +62,18 @@ def scalar_params(qcfg, qstate) -> ScalarQuantParams:
     )
 
 
-def _site_state(site):
-    return {k: getattr(site, k) for k in site._Q_KEYS}
-
-
 def finalize_dense(layer, n_bits_w: Optional[int] = None) -> FastDenseParams:
     """Freeze one calibrated ``QuantDense`` into fast-path params."""
     qc: QuantConfig = layer.qc
     wq_cfg = qc.weight_quantizer(n_bits_w)
-    wq = quantizers.apply(wq_cfg, _site_state(layer.weight_quantizer), layer.kernel,
+    wq = quantizers.apply(wq_cfg, layer.weight_quantizer.quant_state(), layer.kernel,
                           channel_axis=-1)
     act = None
     if qc.quantize_input:
-        act = scalar_params(qc.act_quantizer(), _site_state(layer.activation_quantizer))
+        act = scalar_params(qc.act_quantizer(), layer.activation_quantizer.quant_state())
     res = None
     if qc.run_method.res_quantizer_flag and layer.res_quantizer is not None:
-        res = scalar_params(qc.act_quantizer(), _site_state(layer.res_quantizer))
+        res = scalar_params(qc.act_quantizer(), layer.res_quantizer.quant_state())
     return FastDenseParams(w16=wq.detach().to(torch.bfloat16), bias=layer.bias,
                            act=act, res=res)
 
@@ -100,6 +104,112 @@ def fast_dense_apply(p: FastDenseParams, x, out_dtype=torch.float32):
     return quantized_matmul(x, p.w16, p.act, p.res, p.bias, out_dtype)
 
 
+class Int8Weights(NamedTuple):
+    """Frozen uniform-quantized weights as integer codes:
+    ``w = scale_n * (i + 128 - zp_n)`` for int8 codes ``i`` (4-bit codes are
+    shifted by 8 instead, and ``pack_dense_caches`` stores their ``zp`` in the
+    same 128-based coordinates). Symmetric signed weights have no ``zp``."""
+
+    codes: Optional[torch.Tensor]  # (K, N) int8, or None beside nibble-packed codes
+    scale: torch.Tensor            # (N,) f32 per channel
+    zp: Optional[torch.Tensor]     # (N,) f32 zero point in [0, 255] coordinates, or None
+    wsum: torch.Tensor             # (N,) int32: sum_k codes[k, n]
+
+
+def quantize_acts_int8(x, scale, zero_point, int_min, int_max):
+    """Activations straight to int8 codes: ``x_int = clip(round(x / scale) +
+    zp, int_min, int_max)`` as ``uniform_apply`` maps them, shifted by -128
+    into int8 when the grid is unsigned or asymmetric (``int_min`` 0).
+    Returns (codes int8, c_x) with ``x = scale * (codes - c_x)``."""
+    x_int = torch.clamp(torch.round(x / scale) + zero_point, int_min, int_max)
+    shift = torch.where(int_min < 0, 0.0, 128.0)
+    codes = (x_int - shift).to(torch.int8)
+    c_x = zero_point - shift
+    return codes, c_x
+
+
+def pack_int4(codes):
+    """Nibble-pack (K, N) int8 codes in [-8, 7]: 0.5 byte a weight. Split-K
+    halves: byte row i holds code row i in its low nibble and code row
+    i + ceil(K/2) in its high nibble (odd K pads one zero code row)."""
+    kk = codes.shape[0]
+    k2 = -(-kk // 2)
+    codes_p = torch.nn.functional.pad(codes, (0, 0, 0, 2 * k2 - kk))
+    nib = codes_p.to(torch.int32) & 0xF
+    return (nib[:k2] | (nib[k2:] << 4)).to(torch.uint8)
+
+
+def unpack_int4(packed, k: int):
+    """Inverse of :func:`pack_int4`: (ceil(K/2), N) uint8 -> (K, N) int8,
+    each nibble sign-extended as ``((p & 0xF) ^ 8) - 8``."""
+    p = packed.to(torch.int32)
+    lo = ((p & 0xF) ^ 8) - 8
+    hi = (((p >> 4) & 0xF) ^ 8) - 8
+    return torch.cat([lo, hi], dim=0)[:k].to(torch.int8)
+
+
+def int8_matmul(x_codes, w_codes):
+    """The exact int32 product of (M, K) and (K, N) int8 codes, the JAX
+    package's ``jnp.dot(..., preferred_element_type=int32)``: on the CPU an
+    int32 matmul; on the card ``torch._int_mm``, whose operands need more
+    than 16 rows and K, N multiples of 8, so the codes are padded with zero
+    rows and columns (which add nothing) and the result sliced back."""
+    if x_codes.device.type == "cpu":
+        return x_codes.to(torch.int32) @ w_codes.to(torch.int32)
+    m, k = x_codes.shape
+    n = w_codes.shape[1]
+    mp, kp, np_ = max(32, -(-m // 8) * 8), -(-k // 8) * 8, -(-n // 8) * 8
+    xp = torch.nn.functional.pad(x_codes, (0, kp - k, 0, mp - m))
+    wp = torch.nn.functional.pad(w_codes, (0, np_ - n, 0, kp - k))
+    return torch._int_mm(xp, wp.contiguous())[:m, :n]
+
+
+def quantized_matmul_int8(x_codes, w: Int8Weights, sx, cx, *, bias=None,
+                          out_dtype=torch.float32, w_has_zp: bool = False, acc=None):
+    """``(sx * (x - cx)) @ (sw * (w - cw))`` from the exact int32 sum of the
+    codes, with the zero points unfolded as rank-1 terms:
+
+      out = sx * sw_n * [dot_mn - cx * Wsum_n - cw_n * Xsum_m + K * cx * cw_n]
+
+    in the JAX package's op order (the int32 sum is exact, so the result is
+    too). x_codes: (M, K) int8 from ``quantize_acts_int8``; ``acc``: the int32
+    product when the caller has it (K5's, for nibble-packed weights), and
+    ``w.codes`` is then unused."""
+    k = x_codes.shape[-1]
+    if acc is None:
+        acc = int8_matmul(x_codes, w.codes)
+    out = acc.to(torch.float32) - cx * w.wsum.to(torch.float32)[None, :]
+    if w_has_zp:
+        cw = w.zp - 128.0
+        xsum = torch.sum(x_codes.to(torch.int32), dim=-1, keepdim=True, dtype=torch.int32)
+        out = out - cw[None, :] * xsum.to(torch.float32)
+        out = out + (k * cx) * cw[None, :]
+    out = out * (sx * w.scale)[None, :]
+    if bias is not None:
+        out = out + bias
+    return out.to(out_dtype)
+
+
+def quantize_acts_affine(*args, **kwargs):
+    """:func:`quantize_acts_int8` over a pending ``Affine`` input."""
+    raise NotImplementedError(f"quantize_acts_affine (fused CNN serving boundaries) {LATER_CNN}")
+
+
+def quantized_conv_int8(*args, **kwargs):
+    """The int8 convolution of uniform conv serving."""
+    raise NotImplementedError(f"quantized_conv_int8 (int8 conv serving) {LATER_CNN}")
+
+
+def int8_conv_codes(qc: QuantConfig) -> bool:
+    """Whether uniform packing gives a conv layer int8 codes: its input is
+    quantized by a per-tensor uniform act site (the JAX package then serves
+    it with ``quantized_conv_int8``, which belongs to the CNN slice)."""
+    acfg = qc.act_quantizer()
+    return (qc.weight_quantizer().method != QMethod.fp_quantizer
+            and acfg.method != QMethod.fp_quantizer and not acfg.per_channel
+            and qc.quantize_input)
+
+
 def _cached_layers(model):
     """(name, layer) of every layer holding a weight cache."""
     return [(name, m) for name, m in model.named_modules()
@@ -108,42 +218,113 @@ def _cached_layers(model):
 
 @torch.no_grad()
 def pack_dense_caches(model, qc: QuantConfig, n_bits_w: Optional[int] = None):
-    """Install 1-byte packed weight codes on every layer whose weight cache
+    """Install packed weight codes on every layer whose weight cache
     (``cache_weights``) holds a quantized kernel of two or more dims:
-    ``w_codes`` (uint8 ExMy codes, conv kernels flattened to
-    ``(prod(K)*I, O)``) and ``w_pack_bias`` (int32 per-channel packing
-    bias), which the ``packed`` apply path decodes. Layers whose format
-    does not fit a byte, or whose quantizer state disagrees with the static
-    config (an elected mantissa width, an unsigned grid), stay unpacked.
+
+    * FP quantizer: ``w_codes`` (uint8 ExMy codes, conv kernels flattened to
+      ``(prod(K)*I, O)``) and ``w_pack_bias`` (int32 per-channel packing
+      bias), which the ``packed`` apply path decodes. Layers whose format
+      does not fit a byte, or whose quantizer state disagrees with the
+      static config (an elected mantissa width, an unsigned grid), stay
+      unpacked.
+    * uniform quantizers (n_bits <= 8): ``w_i8``, ``w_i8_scale``,
+      ``w_i8_sum`` and, where some channel has a nonzero zero point,
+      ``w_i8_zp``; at 4 bits or fewer the ``w_i4*`` keys, with the codes
+      nibble-packed (:func:`pack_int4`). A conv layer whose input a uniform
+      act site quantizes would take int8 codes too; that path belongs to
+      the CNN slice and raises.
 
     Updates ``model`` in place and returns ``(model, report)``: ``report``
-    maps layer names to the fraction of channels packed bit-exactly (see
-    ``pack_weights``).
+    maps layer names to the fraction of channels packed bit-exactly (always
+    1.0 for uniform; for FP see ``pack_weights``).
     """
-    from .cuda.dequant_matmul import pack_weights
-
     wq_cfg = qc.weight_quantizer(n_bits_w)
-    if wq_cfg.method != QMethod.fp_quantizer:
-        raise NotImplementedError(f"int8/int4 packing of uniform quantizers {_LATER}")
-    mant = int(wq_cfg.fp8.mantissa_bits)
+    is_fp = wq_cfg.method == QMethod.fp_quantizer
     report = {}
     for name, layer in _cached_layers(model):
-        w_q, w_bias = layer.w_q, layer.w_bias
-        if w_q.ndim < 2 or w_bias is None or w_bias.numel() == 0:
+        w_q = layer.w_q
+        if w_q.ndim < 2:
             continue
+        # the layer's own weight n_bits, recorded at cache time
         n_bits = int(layer.w_nbits[0]) if layer.w_nbits is not None else wq_cfg.n_bits
-        expo = n_bits - 1 - mant
-        if expo < 1 or 1 + expo + mant > 8:
-            continue
-        site = layer.weight_quantizer
-        if (int(torch.round(site.mantissa_bits[0])) != mant
-                or int(site.sign_bits[0]) != 1):
-            continue
-        pw = pack_weights(w_q.reshape(-1, w_q.shape[-1]), w_bias, expo, mant)
-        layer.w_codes = pw.codes
-        layer.w_pack_bias = pw.bias
-        report[name] = float(pw.exact_fraction)
+        if w_q.ndim > 2 and not is_fp:
+            if not int8_conv_codes(qc) or n_bits > 8:
+                continue  # the conv keeps its simulated path
+            raise NotImplementedError(f"int8 codes of the uniform conv layer {name!r} "
+                                      f"(quantized_conv_int8) {LATER_CNN}")
+        pack = _pack_fp if is_fp else _pack_uniform
+        exact = pack(layer, wq_cfg, n_bits)
+        if exact is not None:
+            report[name] = exact
     return model, report
+
+
+def _pack_fp(layer, wq_cfg, n_bits: int) -> Optional[float]:
+    """The FP branch of :func:`pack_dense_caches` for one layer; returns the
+    bit-exact channel fraction, or None when the layer stays unpacked."""
+    from .cuda.dequant_matmul import pack_weights
+
+    w_q, w_bias = layer.w_q, layer.w_bias
+    if w_bias is None or w_bias.numel() == 0:
+        return None
+    mant = int(wq_cfg.fp8.mantissa_bits)
+    expo = n_bits - 1 - mant
+    if expo < 1 or 1 + expo + mant > 8:
+        return None
+    site = layer.weight_quantizer
+    if int(torch.round(site.mantissa_bits[0])) != mant or int(site.sign_bits[0]) != 1:
+        return None
+    pw = pack_weights(w_q.reshape(-1, w_q.shape[-1]), w_bias, expo, mant)
+    layer.w_codes = pw.codes
+    layer.w_pack_bias = pw.bias
+    return float(pw.exact_fraction)
+
+
+def _pack_uniform(layer, wq_cfg, n_bits: int) -> Optional[float]:
+    """The uniform branch of :func:`pack_dense_caches` for one (2-D) layer,
+    in the JAX package's arithmetic; returns the fraction of channels whose
+    codes give the cached weights back exactly, or None when the layer stays
+    unpacked. Every step is per column, so the codes are made a slice of
+    columns at a time (``PACK_CHUNK_ELEMENTS``) and a full-width ``lm_head``
+    holds no full-size f32 or int32 temporaries."""
+    from .cuda.dequant_matmul import PACK_CHUNK_ELEMENTS
+
+    if n_bits > 8:
+        return None
+    site = layer.weight_quantizer
+    w2 = layer.w_q
+    k, n = w2.shape
+    scale = quantizers.uniform_scale(wq_cfg, site.delta.to(torch.float32)).expand(n).contiguous()
+    if wq_cfg.method == QMethod.symmetric_uniform:
+        signed = bool(int(site.signed[0]))
+        zp_q = torch.zeros((n,), dtype=torch.float32, device=w2.device)
+        shift = 0.0 if signed else (8.0 if n_bits <= 4 else 128.0)
+    else:
+        zp_q = torch.round(site.zero_float.to(torch.float32)).expand(n)
+        zp_q = torch.clamp(zp_q, 0.0, 2.0 ** n_bits - 1).contiguous()
+        shift = 8.0 if n_bits <= 4 else 128.0
+    nibbles = n_bits <= 4
+    step = max(1, PACK_CHUNK_ELEMENTS // max(k, 1))
+    codes, wsum, exact = [], [], []
+    for c in range(0, n, step):
+        wc, sc, zc = w2[:, c:c + step], scale[None, c:c + step], zp_q[None, c:c + step]
+        cc = (torch.round(wc / sc) + zc - shift).to(torch.int8)
+        rt = sc * (cc.to(torch.float32) + shift - zc)
+        exact.append(torch.all(rt == wc, dim=0))
+        wsum.append(torch.sum(cc, dim=0, dtype=torch.int32))
+        codes.append(pack_int4(cc) if nibbles else cc)
+    codes, wsum = torch.cat(codes, dim=1), torch.cat(wsum)
+    # stored zero point in shifted coordinates, c_w = zp - 128 (0 for signed
+    # symmetric), installed only where some channel needs it
+    zp_st = zp_q + (128.0 - shift)
+    prefix = "w_i4" if nibbles else "w_i8"
+    setattr(layer, prefix, codes)
+    setattr(layer, prefix + "_scale", scale)
+    setattr(layer, prefix + "_sum", wsum)
+    if bool(torch.any(zp_st != 128.0)):
+        setattr(layer, prefix + "_zp", zp_st)
+    # the mean as XLA takes it: the sum times the reciprocal of the count
+    return float(torch.cat(exact).to(torch.float32).sum() * (1.0 / n))
 
 
 def strip_packed_params(model):
@@ -152,7 +333,7 @@ def strip_packed_params(model):
     to the 1-byte codes. The stripped model only works with ``packed``
     phases; re-calibration needs the originals."""
     for _, layer in _cached_layers(model):
-        if getattr(layer, "w_codes", None) is None:
+        if all(getattr(layer, key, None) is None for key in ("w_codes", "w_i8", "w_i4")):
             continue
         layer.w_q = None
         layer.w_bias = None

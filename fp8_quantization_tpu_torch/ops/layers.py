@@ -21,11 +21,15 @@ weight quantizer's channel axis -1.
 Serving phases: a ``cache_weights`` forward stores each dense and conv
 layer's quantized kernel in buffers named as the flax ``quant_cache``
 collection (``w_q``, ``w_bias``, ``w_nbits``; ``ops.fastpath.
-pack_dense_caches`` adds ``w_codes``, ``w_pack_bias``). Under ``fast`` the
-products take bf16 operands with f32 sums (dense layers through
-``ops.fastpath.quantized_matmul``, the K2 kernel); under ``packed`` a dense
-layer with codes runs the K4 dequant GEMM, with 1-byte ``CodedFP`` input
-under ``chained``, and a conv decodes its codes and convolves.
+pack_dense_caches`` adds ``w_codes``, ``w_pack_bias`` for the FP quantizer,
+the ``w_i8*`` or nibble-packed ``w_i4*`` integer codes for the uniform
+ones). Under ``fast`` FP products take bf16 operands with f32 sums (dense
+layers through ``ops.fastpath.quantized_matmul``, the K2 kernel); under
+``packed`` a dense layer with FP codes runs the K4 dequant GEMM, with 1-byte
+``CodedFP`` input under ``chained``, and a conv decodes its codes and
+convolves. A dense layer with uniform codes quantizes its input to int8
+codes and sums the integer product exactly (the K5 nibble GEMM for
+``w_i4``), with ``Coded`` int8 output under ``chained``.
 """
 
 from __future__ import annotations
@@ -45,10 +49,12 @@ from ..quant.sites import FIXED, QuantPhase, QuantSite, codes_eligible, coded_sh
 from .cuda import approx_matmul as k3
 from .cuda import dequant_matmul as k4
 from .cuda.dequant_matmul import PackedWeights
-from .fastpath import quantized_matmul
+from .fastpath import Int8Weights, quantize_acts_int8, quantized_matmul, quantized_matmul_int8
 
 # the weight cache of a dense or conv layer, named as the flax quant_cache
-CACHE_KEYS = ("w_q", "w_bias", "w_nbits", "w_codes", "w_pack_bias")
+CACHE_KEYS = ("w_q", "w_bias", "w_nbits", "w_codes", "w_pack_bias",
+              "w_i8", "w_i8_scale", "w_i8_zp", "w_i8_sum",
+              "w_i4", "w_i4_scale", "w_i4_zp", "w_i4_sum")
 
 Activation = Optional[Callable[[torch.Tensor], torch.Tensor]]
 
@@ -242,7 +248,25 @@ class QuantDense(_QuantOpBase):
     def forward(self, x, qp: QuantPhase = FIXED):
         return self._tail(self._dense_body(x, qp), qp)
 
+    def _int8_weights(self, qp: QuantPhase):
+        """The integer weight codes installed by ``fastpath.pack_dense_caches``
+        for uniform quantizers under a ``packed`` phase, as ``(Int8Weights,
+        w4)``: ``w4`` is the nibble-packed ``w_i4`` for K5 (the weights'
+        ``codes`` are then None), else None. ``(None, None)`` when the layer
+        falls through: the activation codes need a quantized input."""
+        if not (qp.packed and qp.quant_w and qp.quant_a and not qp.estimating
+                and self.qc.quantize_input and not self._special_armed()):
+            return None, None
+        if self.w_i4 is not None:
+            return Int8Weights(None, self.w_i4_scale, self.w_i4_zp, self.w_i4_sum), self.w_i4
+        if self.w_i8 is not None:
+            return Int8Weights(self.w_i8, self.w_i8_scale, self.w_i8_zp, self.w_i8_sum), None
+        return None, None
+
     def _dense_body(self, x, qp: QuantPhase):
+        iw, w4 = self._int8_weights(qp)
+        if iw is not None:
+            return self._int8_body(x, iw, w4, qp)
         pw = self._packed_weights(qp)
         if pw is not None:
             return self._packed_body(x, pw, qp)
@@ -283,6 +307,28 @@ class QuantDense(_QuantOpBase):
             xkw = {}
         out2d = k4.dequant_matmul(x2d, pw.codes, pw.bias, expo_width=pw.expo_width,
                                   mant_width=pw.mant_width, **xkw)
+        res = out2d.reshape(*lead_shape, self.features)
+        if self.bias is not None:
+            res = res + self.bias
+        return self._res_quant(res, qp, as_codes=self._emits_codes(qp))
+
+
+    def _int8_body(self, x, iw: Int8Weights, w4, qp: QuantPhase):
+        """Integer serving of uniform quantizers: the input (a ``Coded``
+        from the producer under ``chained``, decoded exactly) becomes int8
+        codes on this layer's act grid, their product with the weight codes
+        sums exactly in int32 (K5 for nibble-packed ``w4``), and
+        ``quantized_matmul_int8`` scales it back; the res site then emits
+        values, or ``Coded`` codes under ``chained``. ``kernel`` is never
+        read, so ``strip_packed_params`` may drop it."""
+        lead_shape = coded_shape(x)[:-1]
+        k_in = coded_shape(x)[-1]
+        s, zp, lo, hi = self.activation_quantizer.uniform_int_params()
+        x2d = decoded(x).reshape(-1, k_in).to(torch.float32)
+        codes, cx = quantize_acts_int8(x2d, s[0], zp[0], lo[0], hi[0])
+        acc = None if w4 is None else k4.int4_matmul(codes, w4, k=k_in)
+        out2d = quantized_matmul_int8(codes, iw, s[0], cx, w_has_zp=iw.zp is not None,
+                                      acc=acc)
         res = out2d.reshape(*lead_shape, self.features)
         if self.bias is not None:
             res = res + self.bias

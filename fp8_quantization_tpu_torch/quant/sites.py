@@ -2,17 +2,21 @@
 ``quant/sites.py``).
 
 The JAX package keeps a site's state in the flax ``quant`` / ``quant_est``
-collections; here it is the module's buffers (``maxval``, ``mantissa_bits``,
-``sign_bits`` and ``xmin``, ``xmax``, ``count``), which ``state_dict`` and
-``models.bridge`` address by the same path. The call carries a phase:
+collections; here it is the module's buffers, named as the JAX state keys
+(``maxval``, ``mantissa_bits``, ``sign_bits`` for the FP quantizer,
+``delta``, ``zero_float``, ``signed`` for the uniform ones, and ``xmin``,
+``xmax``, ``count``), which ``state_dict`` and ``models.bridge`` address by
+the same path. The call carries a phase:
 
 * ``ESTIMATE`` folds the batch into the range estimator, sets the quantizer
   range (updating the buffers in place), then quantizes;
 * ``FIXED`` quantizes with the frozen state; the serving phases ``FAST``,
   ``PACKED`` and ``CHAINED`` do so with the bit-ops quantizer kernel (K1)
-  on per-tensor sites, emit bfloat16 (exact for every ExMy grid with at
+  on per-tensor FP sites, emit bfloat16 (exact for every ExMy grid with at
   most 7 mantissa bits) and, under ``CHAINED``, 1-byte :class:`CodedFP`
-  codes where the site is eligible (:func:`codes_eligible`).
+  codes where the site is eligible (:func:`codes_eligible`). Uniform sites
+  run ``uniform_apply`` in f32 in every phase (their grids are not
+  bf16-exact) and, under ``CHAINED``, emit int8 :class:`Coded` codes.
 """
 
 from __future__ import annotations
@@ -23,17 +27,27 @@ import torch
 from torch import nn
 
 from .. import LATER as _LATER
+from .. import LATER_CNN
 from ..config import EstimatorConfig, QMethod, QuantizerConfig
-from ..numerics.rounding import to_int32
+from ..numerics.rounding import round_ste, to_int32
 from . import estimators, quantizers
 
 
+@dataclasses.dataclass(frozen=True)
 class Coded:
-    """int8 codes on a frozen per-tensor uniform grid: the chained currency
-    of the uniform quantizers."""
+    """Activations as int8 codes on a frozen per-tensor uniform grid: the
+    chained currency of the uniform quantizers, ``value = scale * (codes -
+    cx)``. ``decoded`` gives the fake-quantized values bit for bit: the codes
+    and ``cx`` are small integers, exact in f32, and the last multiply is
+    the one ``uniform_apply`` ends with."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"Coded (int8 chained activations) {_LATER}")
+    codes: torch.Tensor   # int8
+    scale: torch.Tensor   # () f32
+    cx: torch.Tensor      # () f32: the zero point in code coordinates
+
+    def reshape(self, *shape):
+        """Shape ops act on the codes (the per-tensor scale is unaffected)."""
+        return dataclasses.replace(self, codes=self.codes.reshape(*shape))
 
 
 class Affine:
@@ -41,7 +55,7 @@ class Affine:
     boundary of int8 CNN serving."""
 
     def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"Affine (fused CNN serving boundaries) {_LATER}")
+        raise NotImplementedError(f"Affine (fused CNN serving boundaries) {LATER_CNN}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,7 +78,10 @@ class CodedFP:
 
 
 def decoded(x, dtype=torch.float32):
-    """Materialize a :class:`CodedFP` back to values; identity for tensors."""
+    """Materialize a :class:`Coded` (always f32) or :class:`CodedFP` back to
+    values; identity for tensors."""
+    if isinstance(x, Coded):
+        return x.scale * (x.codes.to(torch.float32) - x.cx)
     if isinstance(x, CodedFP):
         from ..numerics.codec import unpack_consts, unpack_exmy_bits
 
@@ -75,7 +92,7 @@ def decoded(x, dtype=torch.float32):
 
 def coded_shape(x):
     """Shape of a maybe-coded value without decoding it."""
-    return x.codes.shape if isinstance(x, CodedFP) else x.shape
+    return x.codes.shape if isinstance(x, (Coded, CodedFP)) else x.shape
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,11 +144,11 @@ CHAINED = QuantPhase(phase="fixed", fast=True, packed=True, chained=True)
 
 
 def codes_eligible(qcfg: QuantizerConfig, qp: QuantPhase) -> bool:
-    """Whether a site may emit :class:`CodedFP` under this phase: chained
-    serving with a frozen per-tensor grid of a static byte-sized format
-    (an elected mantissa width, ``mse_include_mantissa_bits`` or
-    ``learn_mantissa_bits``, could differ from the static split the codes
-    decode with)."""
+    """Whether a site may emit :class:`Coded` or :class:`CodedFP` under this
+    phase: chained serving with a frozen per-tensor grid; an FP site also
+    needs a static byte-sized format (an elected mantissa width,
+    ``mse_include_mantissa_bits`` or ``learn_mantissa_bits``, could differ
+    from the static split the codes decode with)."""
     if not (qp.chained and not qp.estimating and not qcfg.per_channel):
         return False
     if qcfg.method != QMethod.fp_quantizer:
@@ -152,7 +169,6 @@ class QuantSite(nn.Module):
     flax site took it from its first input.
     """
 
-    _Q_KEYS = ("maxval", "mantissa_bits", "sign_bits")
     _EST_KEYS = ("xmin", "xmax", "count")
 
     def __init__(self, qcfg: QuantizerConfig, ecfg: EstimatorConfig,
@@ -162,14 +178,32 @@ class QuantSite(nn.Module):
         self.ecfg = ecfg
         self.channel_axis = channel_axis
         c = num_channels if qcfg.per_channel else 1
-        for k, v in quantizers.init(qcfg, c, device).items():
+        q = quantizers.init(qcfg, c, device)
+        # the quantizer's state keys: its method's
+        self.q_keys = tuple(q)
+        for k, v in q.items():
             self.register_buffer(k, v)
         for k, v in estimators.init(ecfg, qcfg, c, device).items():
             self.register_buffer(k, v)
-        self._frozen = None  # (state key, bias, fast-path scalars) for K1
+        # (state key, derived values) frozen per state: the bias and K1
+        # scalars of an FP site, the integer grid of a uniform one
+        self._frozen = None
 
     def _state(self, keys):
         return {k: getattr(self, k) for k in keys}
+
+    def quant_state(self):
+        """The quantizer's state as a dict of this site's buffers."""
+        return self._state(self.q_keys)
+
+    def _derived(self, make):
+        """``make(state)``, computed once per state and again only after
+        the state changes."""
+        q = self.quant_state()
+        key = tuple((id(t), t._version) for t in q.values())
+        if self._frozen is None or self._frozen[0] != key:
+            self._frozen = (key, make(q))
+        return self._frozen[1]
 
     def forward(self, x, qp: QuantPhase = FIXED, *, with_bias: bool = False,
                 as_codes: bool = False):
@@ -177,11 +211,19 @@ class QuantSite(nn.Module):
         (the approx-matmul path needs the derived exponent bias).
 
         ``as_codes`` (chained serving): return a :class:`CodedFP`, the
-        1-byte codes of the site's frozen grid on its packing bias."""
-        if isinstance(x, CodedFP):
+        1-byte codes of the site's frozen grid on its packing bias, or on a
+        uniform site a :class:`Coded`, its int8 codes (``quantize_acts_int8``)."""
+        if isinstance(x, (Coded, CodedFP)):
             x = decoded(x)
-        if as_codes and self.qcfg.method != QMethod.fp_quantizer:
-            raise NotImplementedError(f"int8 codes of uniform sites {_LATER}")
+        uniform = self.qcfg.method != QMethod.fp_quantizer
+        if as_codes and uniform:
+            if qp.estimating or self.qcfg.per_channel:
+                raise ValueError("as_codes needs a frozen per-tensor site")
+            from ..ops.fastpath import quantize_acts_int8
+
+            s, zp, lo, hi = self.uniform_int_params()
+            codes, cx = quantize_acts_int8(x.to(torch.float32), s[0], zp[0], lo[0], hi[0])
+            return Coded(codes, s[0], cx)
         if as_codes and not codes_eligible(self.qcfg, qp):
             raise ValueError("as_codes on an FP site needs a frozen per-tensor "
                              "byte-sized static format (see codes_eligible)")
@@ -189,7 +231,7 @@ class QuantSite(nn.Module):
         # holds grid values, so the upcast is lossless
         x = x.to(torch.float32)
         per_channel = self.qcfg.per_channel
-        q = self._state(self._Q_KEYS)
+        q = self.quant_state()
         if qp.estimating:
             new_est, (x_min, x_max, _) = estimators.update(
                 self.ecfg, self.qcfg, self._state(self._EST_KEYS), x.detach(),
@@ -198,7 +240,16 @@ class QuantSite(nn.Module):
             with torch.no_grad():
                 for k, v in {**q, **new_est}.items():
                     getattr(self, k).copy_(v)
-            q = self._state(self._Q_KEYS)
+            q = self.quant_state()
+        if uniform:
+            # uniform grids are not bf16-exact: f32 values in every phase
+            if qp.estimating or per_channel:
+                y = quantizers.uniform_apply(self.qcfg, q, x, self.channel_axis)
+            else:
+                # uniform_apply's arithmetic on the grid derived once per state
+                s, zp, lo, hi = self.uniform_int_params()
+                y = s * (torch.clamp(round_ste(x / s) + zp, lo, hi) - zp)
+            return (y, None) if with_bias else y
         if qp.fast and not qp.estimating and not per_channel:
             y, bias = self._quantize_block(x, q)
         else:
@@ -220,23 +271,19 @@ class QuantSite(nn.Module):
         """The frozen per-tensor grid through the bit-ops quantizer kernel
         (K1), the JAX package's ``quantize_block``: equal to
         ``quantizers.fp_apply`` wherever the derived bias is finite. The
-        scalars are derived once per state (``fastpath.scalar_params``) and
-        again only after the state changes."""
-        from ..ops.cuda.fused_matmul import quantize_block
+        scalars are derived once per state (``fastpath.scalar_params``)."""
+        from ..ops.cuda import fused_matmul
         from ..ops.fastpath import scalar_params
 
-        key = tuple((id(t), t._version) for t in q.values())
-        if self._frozen is None or self._frozen[0] != key:
-            self._frozen = (key, quantizers.fp_bias(self.qcfg, q),
-                            scalar_params(self.qcfg, q))
-        _, bias, params = self._frozen
-        return quantize_block(x, *params), bias
+        bias, params = self._derived(
+            lambda q: (quantizers.fp_bias(self.qcfg, q), scalar_params(self.qcfg, q)))
+        return fused_matmul.quantize_block(x, *params), bias
 
     def fp_bias(self):
         """Derived exponent bias from the current state."""
         if self.qcfg.method != QMethod.fp_quantizer:
             return None
-        return quantizers.fp_bias(self.qcfg, self._state(self._Q_KEYS))
+        return quantizers.fp_bias(self.qcfg, self.quant_state())
 
     def fp_pack_bias(self):
         """Safe int32 bias for 1-byte code packing: the STE bias when
@@ -244,7 +291,7 @@ class QuantSite(nn.Module):
         STE quantizer rounds its bias, which can put the top binade one past
         the field). The binade test is integer arithmetic on the IEEE
         exponent field."""
-        q = self._state(self._Q_KEYS)
+        q = self.quant_state()
         bias = to_int32(quantizers.fp_bias(self.qcfg, q))
         mant = int(self.qcfg.fp8.mantissa_bits)
         expo = self.qcfg.n_bits - 1 - mant
@@ -252,3 +299,21 @@ class QuantSite(nn.Module):
         e_ieee = (torch.bitwise_right_shift(mv.view(torch.int32), 23) & 0xFF) - 127
         fits = (e_ieee + bias) <= (1 << expo) - 1
         return torch.where(fits, bias, bias - 1)
+
+    def uniform_int_params(self):
+        """(scale, zero_point, int_min, int_max), each of shape (1,), of the
+        frozen uniform grid: the scalars of the int8 serving path
+        (``fastpath.quantize_acts_int8``). Derived once per state."""
+        return self._derived(self._uniform_int_params)
+
+    def _uniform_int_params(self, q):
+        scale = quantizers.uniform_scale(self.qcfg, q["delta"])
+        if self.qcfg.method == QMethod.symmetric_uniform:
+            int_min, int_max = quantizers.sym_int_bounds(self.qcfg, q["signed"])
+            zp = torch.zeros_like(scale)
+        else:
+            int_min = torch.zeros((1,), dtype=torch.float32, device=scale.device)
+            int_max = torch.full((1,), 2.0 ** self.qcfg.n_bits - 1, dtype=torch.float32,
+                                 device=scale.device)
+            zp = torch.clamp(torch.round(q["zero_float"]), int_min, int_max)
+        return scale, zp, int_min, int_max

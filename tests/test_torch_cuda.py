@@ -1,6 +1,7 @@
 """The CUDA kernels on the card against their plain PyTorch versions: K3
 (approximate-multiplier GEMM), K1 (bit-ops quantizer), K2 (fused quant GEMM),
-K4 (packed-FP8 dequant GEMM), K7 (fused SDPA) and K6 (decode attention).
+K4 (packed-FP8 dequant GEMM), K5 (int4 nibble GEMM), K7 (fused SDPA) and K6
+(decode attention).
 
 Every test here needs a GPU (marker ``cuda``) and skips without one: the
 kernel has no CPU mode. The file imports neither JAX nor the JAX package, so
@@ -19,6 +20,9 @@ K2 and K4 sum the exact bf16 products in f32 in ascending k, as their plain
 versions do, so they must equal them exactly too; the stated tolerance of
 the port, ``K * 2^-24 * sum_k |x_k w_k|``, is what a different order could
 cost, and is checked as well.
+
+K5's integer sums are exact in any order: it must equal its plain version
+bit for bit.
 
 K7 and K6 sum in the order their plain versions take, and equal them where
 the two ``exp`` do; the stated tolerance is ``max|d| <= 2e-3 *
@@ -300,6 +304,44 @@ def test_gemm_kernels_reject_what_they_do_not_take(cuda):
                           mant_width=4)
     with pytest.raises(TypeError):
         k2.quantize_block(x.double(), 1.0, 5, 4, 1)
+
+
+# (M, K, N): Llama-3-8B's decode projections (k/v, gate/up, down) and a
+# prefill chunk, odd K with M and N off any tile, a single column
+INT4_SHAPES = [(4, 4096, 1024), (4, 4096, 14336), (4, 14336, 4096), (512, 4096, 14336),
+               (9, 97, 136), (33, 255, 7), (1, 1, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", INT4_SHAPES)
+def test_int4_matmul_matches_plain(cuda, rng, m, k, n):
+    from fp8_quantization_tpu_torch.ops.fastpath import pack_int4
+
+    x = torch.from_numpy(rng.integers(-128, 128, size=(m, k)).astype(np.int8)).to(cuda)
+    w = torch.from_numpy(rng.integers(-8, 8, size=(k, n)).astype(np.int8)).to(cuda)
+    x[0, :] = -128
+    w[:, 0] = -8     # the largest products
+    w4 = pack_int4(w)
+    before = k4.int4_matmul.launches
+    ours = k4.int4_matmul(x, w4, k=k)
+    torch.cuda.synchronize()
+    assert k4.int4_matmul.launches == before + 1 and ours.dtype == torch.int32
+    assert torch.equal(ours, k4.int4_matmul_plain(x, w4, k=k))
+    if m * k * n < 10 ** 7:
+        want = (x.cpu().to(torch.int64) @ w.cpu().to(torch.int64)).to(torch.int32)
+        assert torch.equal(ours.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_int4_matmul_rejects_what_it_does_not_take(cuda):
+    x = torch.zeros((4, 8), dtype=torch.int8, device=cuda)
+    w4 = torch.zeros((4, 3), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):
+        k4.int4_matmul(x, w4.cpu(), k=8)
+    with pytest.raises(TypeError):
+        k4.int4_matmul(x.to(torch.int32), w4, k=8)
+    with pytest.raises(ValueError):
+        k4.int4_matmul(x, w4, k=7)
 
 
 def _assert_attention(ours, plain):

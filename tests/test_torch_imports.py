@@ -59,7 +59,7 @@ def _sources():
 
 
 @pytest.mark.parametrize("name", ["approx_matmul", "fused_matmul", "dequant_matmul",
-                                  "attention", "decode_attention"])
+                                  "int4_matmul", "attention", "decode_attention"])
 def test_cuda_source_is_built_with_a_plain_c_interface(name):
     """Every kernel source is in ``build.SOURCES`` (compiled for sm_90a at
     first use), exports ``extern "C"`` entry points for ctypes and includes

@@ -42,6 +42,7 @@ from fp8_quantization_tpu_torch.ops import fastpath
 from fp8_quantization_tpu_torch.ops.cuda import approx_matmul as k3
 from fp8_quantization_tpu_torch.ops.cuda import dequant_matmul as k4
 from fp8_quantization_tpu_torch.ops.cuda import fused_matmul as k2
+from fp8_quantization_tpu_torch.ops.layers import QuantConv as TConv
 from fp8_quantization_tpu_torch.ops.layers import QuantDense as TDense
 from fp8_quantization_tpu_torch.quant import sites as tsites
 from test_torch_vit import LOGIT_TOL, SEED, TINY, _jax_init, _numpy_tree, _qc
@@ -231,15 +232,17 @@ def test_serving_flags_with_cuda_and_no_gpu_raise(monkeypatch):
 
 
 def test_later_slices_raise():
-    """The int8 chained currency, fused CNN boundaries, uniform packing, the
-    fused SDPA kernel and the training-time phase switches raise."""
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tsites.Coded(torch.zeros(2, dtype=torch.int8), 1.0, 0.0)
+    """Fused CNN boundaries, int8 codes of a uniform conv and the
+    training-time phase switches raise."""
     with pytest.raises(NotImplementedError, match="later slice"):
         tsites.Affine(torch.zeros(2), 1.0, 0.0)
-    uniform = tc.QuantConfig(method=tc.QMethod.symmetric_uniform)
+    uniform = tc.QuantConfig(method=tc.QMethod.symmetric_uniform, quantize_input=True,
+                             weight_range=tc.EstimatorConfig(tc.RangeMethod.current_minmax),
+                             act_range=tc.EstimatorConfig(tc.RangeMethod.allminmax))
+    conv = TConv(uniform, 2, 2, kernel_size=(1, 1))
+    conv.w_q = torch.zeros((1, 1, 2, 2))
     with pytest.raises(NotImplementedError, match="later slice"):
-        fastpath.pack_dense_caches(torch.nn.Linear(2, 2), uniform)
+        fastpath.pack_dense_caches(conv, uniform)
     for name in ("grad_scaling", "reestimate_bn"):
         with pytest.raises(NotImplementedError, match="later slice"):
             dataclasses.replace(tsites.FIXED, **{name: True})

@@ -144,9 +144,9 @@ def test_unported_pieces_raise():
         tsites.QuantPhase(phase="fixed", grad_scaling=True)
     with pytest.raises(NotImplementedError):
         tsites.QuantPhase(phase="fixed", reestimate_bn=True)
+    uniform = tc.QuantizerConfig(method=tc.QMethod.symmetric_uniform)
     with pytest.raises(NotImplementedError):
-        tsites.QuantSite(tc.QuantizerConfig(method=tc.QMethod.symmetric_uniform),
-                         tc.EstimatorConfig())
+        tq.apply(uniform, tq.init(uniform), torch.ones(3), grad_scaling=True)
     with pytest.raises(NotImplementedError):
         tsites.QuantSite(_qcfg(tc, False), tc.EstimatorConfig(tc.RangeMethod.MSE))
     with pytest.raises(NotImplementedError):
