@@ -4,14 +4,14 @@
 // requant(quantize(x) @ decode(w_codes)) with w_codes (K,N) uint8 ExMy codes
 // and a per-column packing bias. x is bf16, f32 (optionally quantized by
 // exmy.cuh::quantize_block on the load) or uint8 codes with a per-tensor
-// packing bias (chained serving). The codes are decoded once per K-slice
-// while the tile is staged in shared memory, with the per-column
-// (ebase_bits, sub_scale) constants computed from the biases once per block
-// and held in registers, so the decode never round-trips through device
-// memory: the weights stream at 1 byte each.
-// The tile loop is tile_gemm.cuh's, shared with K2 (see there for what
-// bounds it and why the sums stay in f32 on the CUDA cores). Out-of-range
-// rows, columns and K entries are masked in the kernel instead of padded.
+// packing bias (chained serving). The weights stream at 1 byte each and are
+// decoded on chip: route A (M <= 16, decode) reads each code's bf16 value
+// from a per-CTA table of its 32 columns, route B (M > 16) decodes a staged
+// K-slice into the swizzled bf16 tile with the per-column (ebase_bits,
+// sub_scale) constants in registers. The routes are tile_gemm.cuh's, shared
+// with K2 (see there for what bounds each, its design and its numerics
+// contract). Out-of-range rows, columns and K entries are masked or
+// zero-filled in the kernel instead of padded.
 //
 // Plain version: fp8_quantization_tpu_torch/ops/cuda/dequant_matmul.py::
 // dequant_matmul_plain.
@@ -49,6 +49,6 @@ extern "C" int fp8q_dequant_matmul(const void* x, const unsigned char* w, void* 
   g.w_expo = w_expo;
   g.w_mant = w_mant;
   g.w_bias = w_bias;
-  return fp8q::dispatch_tile_gemm<fp8q::W_CODES>(g, x_mode, out_bf16,
-                                                 static_cast<cudaStream_t>(stream));
+  return fp8q::dispatch_gemm<fp8q::W_CODES>(g, x_mode, out_bf16,
+                                            static_cast<cudaStream_t>(stream));
 }

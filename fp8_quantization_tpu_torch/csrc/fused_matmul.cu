@@ -10,7 +10,9 @@
 //
 // K2 replaces fp8_quantization_tpu/ops/pallas/fused_matmul.py::
 // fused_quant_matmul: requant(quantize(x) @ w_q) with w_q bf16 grid values,
-// through tile_gemm.cuh (see there for what bounds it and the design).
+// through tile_gemm.cuh: one launch, bit-exact streaming for M <= 16 (route
+// A, decode) and tensor-core tiles above (route B, ViT and prefill); see
+// there for what bounds each route, its design and its numerics contract.
 //
 // Plain versions: fp8_quantization_tpu_torch/ops/cuda/fused_matmul.py.
 
@@ -75,6 +77,6 @@ extern "C" int fp8q_fused_quant_matmul(const void* x, const void* w, void* out, 
   g.act_i = act_i;
   g.res_f = res_f;
   g.res_i = res_i;
-  return fp8q::dispatch_tile_gemm<fp8q::W_BF16>(g, x_bf16 ? fp8q::X_BF16 : fp8q::X_F32,
-                                                out_bf16, static_cast<cudaStream_t>(stream));
+  return fp8q::dispatch_gemm<fp8q::W_BF16>(g, x_bf16 ? fp8q::X_BF16 : fp8q::X_F32, out_bf16,
+                                           static_cast<cudaStream_t>(stream));
 }

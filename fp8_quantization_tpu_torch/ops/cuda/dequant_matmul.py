@@ -35,12 +35,14 @@ from ...numerics.codec import (
 )
 from ...numerics.rounding import to_int32
 from . import build
-from .fused_matmul import (
+from .fused_matmul import (  # noqa: F401  (ROUTE_A_MAX_M, gemm_route: K4's routes too)
+    ROUTE_A_MAX_M,
     QScalars,
     _require_cuda,
     _stream,
     _zero_scalars,
     device_scalars,
+    gemm_route,
     quantize_block_plain,
     sequential_matmul,
 )
@@ -168,6 +170,9 @@ def dequant_matmul(x, w_codes, w_bias, *, expo_width: int, mant_width: int,
     uint8 ExMy codes with a per-tensor ``x_bias`` and ``x_expo``/``x_mant``
     (the chained serving path). w_codes: (K, N) uint8; w_bias: (N,) int32
     packing bias. Returns (M, N) in ``out_dtype`` (float32 or bfloat16).
+    One launch: route A (equal to :func:`dequant_matmul_plain` bit for bit)
+    for M <= ``fused_matmul.ROUTE_A_MAX_M``, route B (tensor cores,
+    ``fused_matmul.within_requant_step``'s contract) above.
     ``dequant_matmul.launches`` counts kernel launches.
     """
     kw = dict(expo_width=expo_width, mant_width=mant_width, act_params=act_params,

@@ -6,12 +6,23 @@ Replace ``fp8_quantization_tpu/ops/pallas/fused_matmul.py::quantize_block``
 and ``::fused_quant_matmul`` and take the same arguments. A tensor on the CPU
 takes the plain version; a CUDA tensor launches the kernel or raises.
 
-The products of the GEMMs (here and in ``dequant_matmul``) multiply bf16
-operands, so every product is exact in f32; the plain version sums them in
-f32 in ascending k (:func:`sequential_matmul`), which the kernel does too,
-so kernel and plain version agree bit for bit. Against the JAX package,
-whose XLA dot sums in another order, they agree to
-``K * 2^-24 * sum_k |x_k w_k|`` per element.
+The GEMMs (here and in ``dequant_matmul``) multiply bf16 operands, so every
+product is exact in f32; the plain version sums them in f32 in ascending k
+(:func:`sequential_matmul`). Each kernel call is one launch, whose route
+depends on M alone (:func:`gemm_route`, ``csrc/tile_gemm.cuh``):
+
+- route A, M <= ``ROUTE_A_MAX_M`` (decode): one f32 chain per output in
+  ascending k, as the plain version sums, so the two are equal bit for bit;
+- route B, larger M (ViT, prefill): tensor-core tiles, which sum in their own
+  order: before any requant ``|kernel - plain| <= K * 2^-24 * sum_k |x_k
+  w_k|`` per element, and after the requant epilogue each output equals the
+  plain one or is exactly one step of the result grid away, where the plain
+  sum lies within that tolerance of a rounding midpoint, with at least 99%
+  equal (:func:`within_requant_step`, the JAX package's own contract at
+  ``tests/test_fused_matmul.py:88-93``).
+
+Against the JAX package, whose XLA dot sums in another order, the plain
+versions agree to ``K * 2^-24 * sum_k |x_k w_k|`` per element.
 """
 
 from __future__ import annotations
@@ -70,6 +81,75 @@ def sequential_matmul(a, b):
 
 def _zero_scalars():
     return 0.0, 0, 0, 0
+
+
+# the largest M that takes route A (csrc/tile_gemm.cuh::ROUTE_A_MAX_M)
+ROUTE_A_MAX_M = 16
+
+
+def gemm_route(m: int) -> str:
+    """The route K2 and K4 take for an (M, K) x: ``"A"`` (bit-exact
+    streaming) for M <= ``ROUTE_A_MAX_M``, else ``"B"`` (tensor cores)."""
+    if m < 0:
+        raise ValueError(f"M must be >= 0, got {m}")
+    return "A" if m <= ROUTE_A_MAX_M else "B"
+
+
+def within_requant_step(ours, plain_sum, tol, res_params: Optional[QScalars] = None, *,
+                        min_equal: float = 0.99):
+    """Route B's numerics contract, element by element. ``plain_sum`` is the
+    plain version's f32 sum (no requant, f32 out), ``tol`` its tolerance
+    ``K * 2^-24 * sum_k |x_k w_k|`` (:func:`sum_tolerance`), ``res_params``
+    the requant scalars when the epilogue ran.
+
+    Every output must be what the output map R (the requant when
+    ``res_params`` is given, then the cast to ``ours.dtype``) gives for some
+    sum within ``tol`` of the plain one: it lies in ``[R(s - tol), R(s +
+    tol)]``: without the requant and in f32 this is ``|ours - s| <= tol``.
+    With the requant, an output that is not ``R(s)`` must moreover be its
+    neighbour on the result grid (exactly one step away: nothing of the grid
+    lies between them), which happens only where ``s`` lies within ``tol``
+    of a rounding midpoint, and at least ``min_equal`` of the outputs must
+    equal ``R(s)``.
+
+    Returns ``(ok, {"equal_fraction", "steps", "max_abs"})``.
+    """
+    ours = torch.as_tensor(ours)
+    s = plain_sum.to(torch.float32)
+    tol = torch.as_tensor(tol, dtype=torch.float64, device=s.device)
+
+    def out_map(v):
+        if res_params is not None:
+            v = quantize_block_plain(v, *res_params)
+        return v.to(ours.dtype).to(torch.float32)
+
+    o = ours.to(torch.float32)
+    q = out_map(s)
+    lo = out_map((s.double() - tol).to(torch.float32))
+    hi = out_map((s.double() + tol).to(torch.float32))
+    equal = (o == q) | (torch.isnan(o) & torch.isnan(q))
+    ok_elem = equal | ((o >= lo) & (o <= hi))
+    if res_params is not None:
+        mid = out_map(((o.double() + q.double()) / 2).to(torch.float32))
+        ok_elem = equal | (ok_elem & ((mid == o) | (mid == q)))
+    frac = float(equal.to(torch.float64).mean()) if equal.numel() else 1.0
+    ok = bool(ok_elem.all()) and (res_params is None or frac >= min_equal)
+    diff = (o - q).abs().nan_to_num(0.0)
+    return ok, {"equal_fraction": frac, "steps": int((~equal).sum()),
+                "max_abs": float(diff.max()) if diff.numel() else 0.0}
+
+
+def sum_tolerance(x_eff, w_eff):
+    """``K * 2^-24 * sum_k |x_k w_k|`` per output element (f64), for the
+    effective (bf16-valued) operands. On the CPU the sums are taken in f64;
+    on the card in f32 (no TF32), whose sums of non-negative terms are off by
+    at most ``K * 2^-24`` relative, so the result is scaled down by twice
+    that and is never looser than the f64 value."""
+    k = x_eff.shape[1]
+    if x_eff.is_cuda:
+        sums = (x_eff.float().abs() @ w_eff.float().abs()).double()
+        return k * 2.0 ** -24 * (1.0 - 2.0 * k * 2.0 ** -24) * sums
+    return k * 2.0 ** -24 * (x_eff.double().abs() @ w_eff.double().abs())
 
 
 def fused_quant_matmul_plain(x, w_q, act_params: Optional[QScalars] = None,
@@ -177,7 +257,10 @@ def fused_quant_matmul(x, w_q, act_params: Optional[QScalars] = None,
     x: (M, K) float32 (quantized by K1 on the load with ``quantize_x``) or
     bfloat16; w_q: (K, N) bfloat16 grid values; act/res params:
     ``(maxval, bias, mant, sign)`` scalars. Returns (M, N) in ``out_dtype``
-    (float32 or bfloat16). ``fused_quant_matmul.launches`` counts launches.
+    (float32 or bfloat16). One launch: route A (equal to
+    :func:`fused_quant_matmul_plain` bit for bit) for M <=
+    ``ROUTE_A_MAX_M``, route B (tensor cores, :func:`within_requant_step`'s
+    contract) above. ``fused_quant_matmul.launches`` counts launches.
     """
     _check_shapes(x, w_q, quantize_x)
     if w_q.dtype != torch.bfloat16:

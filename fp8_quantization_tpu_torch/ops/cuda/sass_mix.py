@@ -1,4 +1,5 @@
-"""Instruction mix of K3's main loop, read from the compiled SASS.
+"""Instruction mix of K3's main loop, and the tensor-core instructions of
+the GEMMs K2 and K4, read from the compiled SASS.
 
     python -m fp8_quantization_tpu_torch.ops.cuda.sass_mix
 
@@ -9,7 +10,11 @@ its K-slice loop (the widest backward branch) and counts the instructions in
 it by class. One pass of that loop does ``BK * RM * RN`` products per
 thread, so the count per product, staging included, is the loop's length
 over that; it feeds the kernel's operation bound. Prints one JSON object.
-Needs the CUDA toolkit, so it runs on the GPU machine only.
+:func:`tensor_core_mix` counts the tensor-core instructions (``HMMA`` of
+``mma.sync``, ``HGMMA`` of ``wgmma``) in each route of K2 and K4: route B
+(``mma_gemm_kernel``) must have them, route A (``stream_gemm_kernel``) sums
+on the CUDA cores. Needs the CUDA toolkit, so it runs on the GPU machine
+only.
 """
 
 from __future__ import annotations
@@ -82,9 +87,7 @@ def instruction_mix(path: str | None = None) -> dict:
     """The flagship loop's instructions per product, in all and by class, of
     the built library at ``path`` (built first when not given)."""
     path = path or build.build_all(["approx_matmul"])["approx_matmul"]["path"]
-    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True,
-                          check=True).stdout
+    sass = _sass(path)
     funcs = {k: v for k, v in _functions(sass).items() if FLAGSHIP in k}
     if len(funcs) != 1:
         raise RuntimeError(f"expected one flagship instantiation, found {list(funcs)}")
@@ -98,8 +101,39 @@ def instruction_mix(path: str | None = None) -> dict:
     }
 
 
+def _sass(path: str) -> str:
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    return subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True,
+                          check=True).stdout
+
+
+TENSOR_CORE_OPS = ("HMMA", "HGMMA")
+GEMM_SOURCES = ("fused_matmul", "dequant_matmul")
+
+
+def tensor_core_mix(paths: dict | None = None) -> dict:
+    """``{source: {kernel function: tensor-core instruction count}}`` for the
+    GEMM kernels (route A ``stream_gemm_kernel``, route B
+    ``mma_gemm_kernel``) of the built K2 and K4 libraries (``paths``:
+    ``{source: library path}``, built first when not given)."""
+    paths = paths or {n: v["path"] for n, v in build.build_all(GEMM_SOURCES).items()}
+    out = {}
+    for name in GEMM_SOURCES:
+        funcs = _functions(_sass(paths[name]))
+        out[name] = {fn: sum(op in TENSOR_CORE_OPS for _, op, _ in instrs)
+                     for fn, instrs in funcs.items() if "gemm_kernel" in fn}
+    return out
+
+
+def route_b_uses_tensor_cores(mix: dict) -> bool:
+    """Every route B function has tensor-core instructions."""
+    counts = [c for funcs in mix.values() for fn, c in funcs.items() if "mma_gemm" in fn]
+    return bool(counts) and min(counts) > 0
+
+
 def main():
     print(json.dumps(instruction_mix()))
+    print(json.dumps(tensor_core_mix()))
 
 
 if __name__ == "__main__":
