@@ -10,7 +10,7 @@
 //
 // K2 replaces fp8_quantization_tpu/ops/pallas/fused_matmul.py::
 // fused_quant_matmul: requant(quantize(x) @ w_q) with w_q bf16 grid values,
-// through tile_gemm.cuh: one launch, bit-exact streaming for M <= 16 (route
+// through tile_gemm.cuh: one launch, bit-exact streaming for small M (route
 // A, decode) and tensor-core tiles above (route B, ViT and prefill); see
 // there for what bounds each route, its design and its numerics contract.
 //
@@ -55,12 +55,13 @@ extern "C" int fp8q_quantize_block(const float* x, float* out, long long n,
   return (int)cudaGetLastError();
 }
 
-// K2. x: (M,K) f32 (x_bf16 = 0) or bf16 (x_bf16 = 1); w: (K,N) bf16;
+// K2. route_a_max_m: the largest M that takes route A (at most 16);
+// x: (M,K) f32 (x_bf16 = 0) or bf16 (x_bf16 = 1); w: (K,N) bf16;
 // out: (M,N) f32 or bf16 (out_bf16). act_*/res_* as for K1, read only when
 // quantize_x / requantize_out. Returns cudaGetLastError().
 extern "C" int fp8q_fused_quant_matmul(const void* x, const void* w, void* out, int M,
-                                       int N, int K, int x_bf16, int out_bf16,
-                                       int quantize_x, int requantize_out,
+                                       int N, int K, int route_a_max_m, int x_bf16,
+                                       int out_bf16, int quantize_x, int requantize_out,
                                        const float* act_f, const int* act_i,
                                        const float* res_f, const int* res_i,
                                        void* stream) {
@@ -71,6 +72,7 @@ extern "C" int fp8q_fused_quant_matmul(const void* x, const void* w, void* out, 
   g.M = M;
   g.N = N;
   g.K = K;
+  g.route_a_max_m = route_a_max_m;
   g.quantize_x = quantize_x;
   g.requantize_out = requantize_out;
   g.act_f = act_f;

@@ -9,9 +9,10 @@
 // arrives as bf16 grid values (K2) or as 1-byte ExMy codes with per-column
 // decode constants (K4). Every operand is rounded to bf16 on the load, as the
 // TPU kernels feed the MXU bf16. Each call is one launch; the route depends
-// on M alone (ROUTE_A_MAX_M).
+// on M alone: route A for M <= route_a_max_m, which the caller passes
+// (ops/cuda/fused_matmul.py::ROUTE_A_MAX_M, at most A_MAX_ROWS).
 //
-// Route A, M <= 16 (decode): bit-exact streaming.
+// Route A, M <= route_a_max_m (16; decode): bit-exact streaming.
 //   Bound on an H100: bytes in principle (K x N x 2 bytes for K2, 1 byte for
 //   K4, at 3.35 TB/s), but below that the latency of one dependent f32 chain
 //   of K fused multiply-adds (4.1 cycles each at 1.98 GHz: ~8.6 us at
@@ -36,7 +37,7 @@
 //   then reads 8 weights per 16-byte load, three loads ahead of its
 //   products. The codes cross HBM at 1 byte each.
 //
-// Route B, M > 16 (ViT, prefill): a tensor-core tile GEMM.
+// Route B, larger M (ViT, prefill): a tensor-core tile GEMM.
 //   Bound on an H100: operations at these shapes (989 TFLOP/s bf16 dense).
 //   Design: 128x128 output tiles of 8 warps, each warp 64x32 of mma.sync
 //   m16n8k16 bf16 products with f32 accumulators in registers; operand tiles
@@ -70,14 +71,12 @@ namespace fp8q {
 enum XMode { X_F32 = 0, X_BF16 = 1, X_CODES = 2 };
 enum WMode { W_BF16 = 0, W_CODES = 1 };
 
-// the largest M that takes route A (ops/cuda/fused_matmul.py::gemm_route)
-constexpr int ROUTE_A_MAX_M = 16;
-
 struct GemmArgs {
   const void* x;  // (M, K) row-major: f32, bf16 or uint8 codes
   const void* w;  // (K, N) row-major: bf16 or uint8 codes
   void* out;      // (M, N) row-major: f32 or bf16
   int M, N, K;
+  int route_a_max_m;  // the largest M that takes route A
   int quantize_x, requantize_out;
   const float* act_f;
   const int* act_i;
@@ -137,12 +136,13 @@ __device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
 }
 
 // ---------------------------------------------------------------------------
-// Route A: bit-exact streaming for M <= ROUTE_A_MAX_M
+// Route A: bit-exact streaming for M <= route_a_max_m
 
 constexpr int A_BN = 32;              // columns per CTA, one per lane
 constexpr int A_BK = 256;             // k rows per stage
 constexpr int A_CONVERT_WARPS = 8;
 constexpr int A_MAX_SMEM = 200 * 1024;
+constexpr int A_MAX_ROWS = 16;  // the most rows a CTA holds: 4 compute warps of 4
 
 template <int WM>
 struct StreamTile {
@@ -780,7 +780,7 @@ inline int rows_aligned(const GemmArgs& g, int x_mode, int welt) {
 template <int XM, int WM>
 inline int launch_route(const GemmArgs& g, int out_bf16, cudaStream_t stream) {
   const int vec = rows_aligned(g, XM, WM == W_CODES ? 1 : 2);
-  if (g.M > ROUTE_A_MAX_M) return launch_mma<XM, WM>(g, out_bf16, vec, stream);
+  if (g.M > g.route_a_max_m) return launch_mma<XM, WM>(g, out_bf16, vec, stream);
   switch (stream_rows_per_warp(g.M)) {
     case 1: return launch_stream<WM, 1>(g, XM, out_bf16, vec, stream);
     case 2: return launch_stream<WM, 2>(g, XM, out_bf16, vec, stream);
@@ -792,6 +792,7 @@ inline int launch_route(const GemmArgs& g, int out_bf16, cudaStream_t stream) {
 // mode is the caller's. Coded x exists only beside coded w (K4).
 template <int WM>
 inline int dispatch_gemm(const GemmArgs& g, int x_mode, int out_bf16, cudaStream_t stream) {
+  if (g.route_a_max_m < 0 || g.route_a_max_m > A_MAX_ROWS) return (int)cudaErrorInvalidValue;
   if (g.M <= 0 || g.N <= 0) return (int)cudaSuccess;
   if ((g.M + B_BM - 1) / B_BM > 65535) return (int)cudaErrorInvalidValue;
   if (x_mode == X_F32) return launch_route<X_F32, WM>(g, out_bf16, stream);

@@ -35,14 +35,13 @@ from ...numerics.codec import (
 )
 from ...numerics.rounding import to_int32
 from . import build
-from .fused_matmul import (  # noqa: F401  (ROUTE_A_MAX_M, gemm_route: K4's routes too)
+from .fused_matmul import (
     ROUTE_A_MAX_M,
     QScalars,
     _require_cuda,
     _stream,
     _zero_scalars,
     device_scalars,
-    gemm_route,
     quantize_block_plain,
     sequential_matmul,
 )
@@ -145,7 +144,7 @@ def dequant_matmul_plain(x, w_codes, w_bias, *, expo_width: int, mant_width: int
 @functools.lru_cache(maxsize=None)
 def _lib():
     fn = build.load("dequant_matmul").fp8q_dequant_matmul
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 4
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p] + [ctypes.c_int] * 2
                    + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
@@ -206,7 +205,8 @@ def dequant_matmul(x, w_codes, w_bias, *, expo_width: int, mant_width: int,
     af, ai = device_scalars(act_params if quantize_x else None, dev)
     rf, ri = device_scalars(res_params if requantize_out else None, dev)
     with torch.cuda.device(dev):
-        err = _lib()(x.data_ptr(), w_codes.data_ptr(), out.data_ptr(), m, n, k, x_mode,
+        err = _lib()(x.data_ptr(), w_codes.data_ptr(), out.data_ptr(), m, n, k, ROUTE_A_MAX_M,
+                     x_mode,
                      int(out_dtype == torch.bfloat16), int(quantize_x), int(requantize_out),
                      af.data_ptr(), ai.data_ptr(), rf.data_ptr(), ri.data_ptr(),
                      expo_width, mant_width, w_bias.data_ptr(), x_expo or 0, x_mant or 0,

@@ -48,13 +48,6 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-def sum_tolerance(x, w):
-    """``K * 2^-24 * sum_k |x_k w_k|`` per output element, in f64."""
-    x = np.asarray(x, np.float64)
-    w = np.asarray(w, np.float64)
-    return x.shape[1] * 2.0 ** -24 * (np.abs(x) @ np.abs(w))
-
-
 @pytest.mark.parametrize("expo,mant", FORMATS)
 def test_codec_bit_exact_over_value_space(expo, mant):
     """value_space, pack_exmy, unpack_exmy, unpack_consts and
@@ -156,7 +149,7 @@ def _assert_sum_close(ours, theirs, x_eff, w_eff, requantized):
         # at a rounding midpoint; none of these inputs sits on one
         np.testing.assert_array_equal(ours, theirs)
         return
-    tol = sum_tolerance(x_eff, w_eff)
+    tol = k2.sum_tolerance(_t(x_eff), _t(w_eff)).numpy()
     assert (np.abs(ours.astype(np.float64) - theirs) <= tol).all()
 
 
