@@ -36,6 +36,7 @@
 #include <cstdint>
 
 #include "exmy.cuh"
+#include "stamps.cuh"
 
 namespace {
 
@@ -141,6 +142,7 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(DecodeArgs a) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int hk = blockIdx.x, b = blockIdx.y;
   const int h0 = hk * G;
+  STAMP_DECL
 
   for (int i = tid; i < G * D; i += THREADS)
     qs[i] = fp8q::round_bf16(a.q[((size_t)b * a.H + h0) * D + i]);
@@ -166,6 +168,7 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(DecodeArgs a) {
 #pragma unroll
   for (int j = 0; j < MAX_ACC; ++j) acc[j] = 0.f;
 
+  STAMP(0);
   for (int base = 0; base < kend; base += bs) {
     const int n = min(bs, kend - base);
     // scores of the block's keys, a chunk of rows at a time
@@ -174,6 +177,7 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(DecodeArgs a) {
       __syncthreads();
       stage_rows<CODED>(a, a.k, b, hk, base + cb, nc, stage);
       __syncthreads();
+      STAMP(1);
       for (int r = warp; r < nc; r += WARPS) {
         float part[MAX_G];
 #pragma unroll
@@ -193,6 +197,7 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(DecodeArgs a) {
           }
         }
       }
+      STAMP(2);
     }
     __syncthreads();
     // the block's max, p = exp(s - m_new) as bf16, and the sums
@@ -217,6 +222,7 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(DecodeArgs a) {
       }
     }
     // pv = bf16(p) @ v over the same keys, then acc = acc * corr + pv
+    STAMP(3);
     float pv[MAX_ACC];
 #pragma unroll
     for (int j = 0; j < MAX_ACC; ++j) pv[j] = 0.f;
@@ -225,6 +231,7 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(DecodeArgs a) {
       __syncthreads();
       stage_rows<CODED>(a, a.v, b, hk, base + cb, nc, stage);
       __syncthreads();
+      STAMP(4);
 #pragma unroll
       for (int j = 0; j < MAX_ACC; ++j) {
         const int o = tid + j * THREADS;
@@ -237,12 +244,14 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(DecodeArgs a) {
           pv[j] = sum;
         }
       }
+      STAMP(5);
     }
 #pragma unroll
     for (int j = 0; j < MAX_ACC; ++j) {
       const int o = tid + j * THREADS;
       if (o < n_out) acc[j] = acc[j] * corr[o / D] + pv[j];
     }
+    STAMP(6);
   }
   __syncthreads();
 
@@ -253,6 +262,8 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(DecodeArgs a) {
     const float val = acc[j] / l[o / D];
     a.out[((size_t)b * a.H + h0) * D + o] = val;
   }
+  STAMP(7);
+  STAMP_STORE(blockIdx.y * gridDim.x + blockIdx.x);
 }
 
 template <bool CODED>
