@@ -9,7 +9,8 @@ Phases, one line each (any failure exits non-zero; no phase is skipped):
    power limit as ``nvidia-smi`` reports them.
 2. build: compiles every CUDA source of the port with ``nvcc`` for sm_90a,
    one ``nvcc`` per source, all at once; counts the tensor-core instructions
-   in the SASS of each route of K2 and K4 (route B must have them).
+   in the SASS of each route of K2 and K4 and of K7 (route B and K7 must
+   have them).
 3. kernels: the approximate-multiplier GEMM (K3) against its plain PyTorch
    version on the card, at the four ViT-B/16 layer shapes on a 64-row slice,
    in the eight flag cases of the JAX package's Pallas tests and on every
@@ -20,11 +21,14 @@ Phases, one line each (any failure exits non-zero; no phase is skipped):
    ones, Llama-3-8B's decode shapes (k/v and down at 1, 2, 4, 16 rows,
    lm_head at 4) and 16 and 17 rows of 4096 x 4096: route A (M <= 16) equal
    to the plain version, route B (tensor cores) within
-   ``fused_matmul.within_requant_step``'s contract; the fused SDPA (K7) at Llama-3-8B's cold prefill chunks, a
-   warm 2048-key slab with offsets, ViT-B/16's attention, an unaligned shape
-   and with its requant epilogue; the decode attention (K6) over Llama-3-8B's
-   2048-slot slabs in bf16 and in uint8 codes, and at an S off its key
-   block; the int4 nibble GEMM (K5) equal to its plain version at
+   ``fused_matmul.within_requant_step``'s contract; the fused SDPA (K7)
+   within ``attention.within_sdpa_contract`` on a warm 2048-key slab with
+   offsets, ViT-B/16's attention (timed per batch-8 forward) and an
+   unaligned shape, each also with its requant epilogue (equal to K1 of the
+   kernel's own context); the decode attention (K6) equal to its plain
+   version bit for bit over Llama-3-8B's 2048-slot slabs in bf16 and in
+   uint8 codes, at lengths on its 64-key sub-chunk and 512-key block edges,
+   and at an S off its key block; the int4 nibble GEMM (K5) equal to its plain version at
    Llama-3-8B's decode and prefill shapes and an unaligned one, timed beside
    ``torch._int_mm``. At the shapes of a batch-8 forward, in the configurations the main
    path launches (K1 at every size it sees, K2 on bf16 x, K4 on bf16 and on
@@ -48,8 +52,9 @@ Phases, one line each (any failure exits non-zero; no phase is skipped):
    nibbles and served under PACKED with a bf16 cache (K5, K7, K6). Every
    run counts each kernel's launches with the counts zeroed just before it
    and holds them to the counts its shapes imply, and ``torch.profiler``
-   then splits a decode step of each phase into device and host time. K7,
-   K6 and K5 are checked and timed at every shape the runs gave them,
+   then splits a decode step of each phase into device and host time. K7
+   (to its contract), K6 (bit for bit) and K5 are checked and timed at every
+   shape the runs gave them,
    beside their plain versions, ``scaled_dot_product_attention`` or
    ``torch._int_mm`` and the card's bound; K2 (f32 x quantized on the load)
    and K4 (bf16 x) at every Llama projection shape, at 4 decode rows and at
@@ -59,19 +64,22 @@ Phases, one line each (any failure exits non-zero; no phase is skipped):
    plain versions on the card, from one calibrated state: the approximate
    ViT; the published-flag ViT under PACKED and CHAINED from one packed
    state (relative RMS below 1e-2, same top-1: K4 route B), and under FAST
-   with ``fused_sdpa=True`` (every K2 call held to its route's contract on
-   its own inputs, same top-1, relative RMS within ``RMS_LIMIT``);
-   Llama-3-8B under FAST+fused and PACKED+packed_kv+fused (every K2/K4 call
-   held to its contract; prefill logits within ``RMS_LIMIT``; prefill
+   with ``fused_sdpa=True`` (every K2 and K7 call held to its contract on
+   its own inputs and every K1 call to equality, same top-1, relative RMS
+   within ``RMS_LIMIT``); Llama-3-8B under FAST+fused and
+   PACKED+packed_kv+fused (every K2/K4 and K7 call held to its contract and
+   every K1 call to equality; prefill logits within ``RMS_LIMIT``; prefill
    argmax, and the greedy tokens of two prompts through the batcher, equal
    where the plain top-1/top-2 margin is at least twice the prefill logits'
    max |d|, at least one such token compared; with the admissions through
    the plain versions, the kernels' decode steps give the plain run's
    logits and tokens exactly). ``RMS_LIMIT`` lies between the relative RMS
-   of the plain path with its GEMM sums in another legal order and in a
-   lower-precision control, both read again in every run;
+   of the plain path with its GEMM and K7 sums in another legal order and in
+   a lower-precision control, both read again in every run;
    Llama-3-8B in w4a8 under
-   PACKED+fused (logits and tokens equal, max |d| 0), and in
+   PACKED+fused (with K7 through its plain version on both sides, logits
+   and tokens through K5 and K6 equal to the plain run's, max |d| 0; through
+   every kernel, each K7 call within its contract), and in
    ``uniform_qc(8)`` under PACKED and CHAINED (bit-equal prefill and
    decode-step logits).
 
@@ -84,6 +92,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -649,10 +658,11 @@ def plain_kernels():
 # through the later sites): the relative RMS of the logits, sqrt(mean(d^2)) /
 # std(plain). It lies between two readings of the plain path at the same
 # seeds (PERF.md §6, PR 5: 0.027-0.032 and 0.066-0.102 on ViT-B/16 and
-# Llama-3-8B at depth 2): with the GEMM sums in another legal order (k
-# descending), and in a lower-precision control (the running sum rounded to
-# bf16 after each CONTROL_SLICE_K-deep k-slice). Every run takes both
-# readings again and fails unless they still bracket the limit.
+# Llama-3-8B at depth 2): with the GEMM sums (and K7's, whose tensor cores
+# also sum in their own order) in another legal order (descending), and in a
+# lower-precision control (the GEMMs' running sum rounded to bf16 after each
+# CONTROL_SLICE_K-deep k-slice). Every run takes both readings again and
+# fails unless they still bracket the limit.
 RMS_LIMIT = 0.05
 CONTROL_SLICE_K = 32   # route B's tile depth
 GEMM_SUM_ORDERS = ("k descending", "bf16 running sum")
@@ -662,7 +672,10 @@ GEMM_SUM_ORDERS = ("k descending", "bf16 running sum")
 def plain_path(order):
     """``plain_kernels()``, with the K2/K4 plain versions taking their f32
     sums in ``order`` (one of ``GEMM_SUM_ORDERS``) instead of
-    ``sequential_matmul``'s ascending k."""
+    ``sequential_matmul``'s ascending k; in the legal order ("k
+    descending") K7's plain version also sums each score over d and ``p v``
+    over keys in descending order."""
+    from fp8_quantization_tpu_torch.ops.cuda import attention as k7
     from fp8_quantization_tpu_torch.ops.cuda import dequant_matmul as dm
     from fp8_quantization_tpu_torch.ops.cuda import fused_matmul as fm
 
@@ -682,6 +695,8 @@ def plain_path(order):
         zip(GEMM_SUM_ORDERS, (descending, bf16_running)))[order]
     try:
         with plain_kernels():
+            if order == GEMM_SUM_ORDERS[0]:
+                k7.fused_sdpa = functools.partial(k7.fused_sdpa_plain, descending=True)
             yield
     finally:
         fm.sequential_matmul = dm.sequential_matmul = seq
@@ -778,6 +793,51 @@ def verified_gemms(record):
         yield record
     finally:
         fm.fused_quant_matmul, dm.dequant_matmul = saved
+
+
+@contextlib.contextmanager
+def verified_attention(record):
+    """Every K7 and K1 call made inside goes to its kernel and is held, on
+    its own inputs, to its plain version: K7 to its contract
+    (``attention.within_sdpa_contract``), K1 equal bit for bit. ``record``
+    gathers {"K7", "K1" (calls), "min_equal", "worst_ratio"}."""
+    from fp8_quantization_tpu_torch.ops.cuda import attention as k7
+    from fp8_quantization_tpu_torch.ops.cuda import fused_matmul as fm
+
+    record.update(K7=0, K1=0, min_equal=1.0, worst_ratio=0.0)
+    contract_kw = ("s_valid", "causal", "offsets", "res_params", "requantize_out")
+
+    def run(module, name, kernel, call, *args, **kw):
+        # the wrapper counts its launches under its module-level name
+        setattr(module, name, kernel)
+        try:
+            return kernel(*args, **kw)
+        finally:
+            setattr(module, name, call)
+
+    sdpa, quantize = k7.fused_sdpa, fm.quantize_block
+
+    def sdpa_call(q, k, v, **kw):
+        ours = run(k7, "fused_sdpa", sdpa, sdpa_call, q, k, v, **kw)
+        info = _sdpa_verdict(f"K7 on a model call {tuple(q.shape)} over {tuple(k.shape)}",
+                             ours, q, k, v, **{key: kw[key] for key in contract_kw if key in kw})
+        record["K7"] += 1
+        record["min_equal"] = min(record["min_equal"], info["equal_fraction"])
+        record["worst_ratio"] = max(record["worst_ratio"], info.get("worst_ratio", 0.0))
+        return ours
+
+    def quantize_call(x, *args):
+        ours = run(fm, "quantize_block", quantize, quantize_call, x, *args)
+        record["K1"] += 1
+        if not torch.equal(ours, fm.quantize_block_plain(x, *args)):
+            raise SystemExit(f"K1 differs from its plain version on a model call {tuple(x.shape)}")
+        return ours
+
+    k7.fused_sdpa, fm.quantize_block = sdpa_call, quantize_call
+    try:
+        yield record
+    finally:
+        k7.fused_sdpa, fm.quantize_block = sdpa, quantize
 
 
 def compare_logits(name, logits, plain_logits, spec, close=False):
@@ -1058,29 +1118,56 @@ def profile_decode(name, model, spec, qp, dev, steps=3):
                   f"launches per step; heaviest: {top}")
 
 
-def _close_attention(name, ours, plain):
-    """``max|d| <= 2e-3 * max(1, max|plain|)``; returns max|d|."""
-    ours, plain = ours.float(), plain.float()
-    err = float((ours - plain).abs().max())
-    scale = float(plain.abs().max())
-    ok = bool(torch.isfinite(ours).all()) and err <= 2e-3 * max(1.0, scale)
+def _sdpa_verdict(name, ours, q, k, v, **kw):
+    """K7's contract at one call (``attention.within_sdpa_contract``): fails
+    the run when it breaks it; returns the contract's record (equal fraction,
+    max |d| against the plain output, worst ratio of |d| to the bound for an
+    f32 output without requant)."""
+    from fp8_quantization_tpu_torch.ops.cuda import attention as k7
+
+    ok, info = k7.within_sdpa_contract(ours, q, k, v, **kw)
     if not ok:
-        raise SystemExit(f"{name} disagrees with its plain version: max|d| {err:.3g} "
-                         f"against max|plain| {scale:.3g}")
-    return err
+        raise SystemExit(f"{name} breaks its contract with its plain version: {info}")
+    return info
+
+
+def _equal_decode(name, ours, plain):
+    """K6 equal to its plain version bit for bit; returns max|d| (0)."""
+    if not (torch.equal(ours, plain) and bool(torch.isfinite(ours).all())):
+        raise SystemExit(f"K6 {name}: {int((ours != plain).sum())} of {ours.numel()} outputs "
+                         f"differ from the plain version, max|d| "
+                         f"{float((ours - plain).abs().max()):.3g}")
+    return 0.0
 
 
 def _randn(gen, *shape, dev):
     return torch.randn(shape, generator=gen, device=dev)
 
 
+def _sdpa_bound(b, t, s, h, hk, d, pairs):
+    """K7's bound: q, k, v read once as bf16 and the f32 context written
+    once, against 2 x 2 x D operations per unmasked (query token, key) pair
+    of the function (``pairs``, over the batch and per query head: q k^T and
+    p v)."""
+    return _bound(2 * b * t * h * d + 2 * 2 * b * s * hk * d + 4 * b * t * h * d,
+                  2 * 2 * h * d * pairs)
+
+
+# ViT-B/16's attention: one K7 launch a block, batch 8 (B, T, H, D)
+VIT_ATTENTION = (BATCH, 197, 12, 64)
+VIT_LAYERS = 12
+
+
 def check_attention(spec, dev):
-    """Phase 3: K7 and K6 against their plain versions at the shapes the
-    serving run does not give them (``time_llama_attention`` checks the cold
-    chunks and decode lengths it does give): K7 on a warm slab with offsets,
-    ViT-B/16 and an unaligned shape, each with the requant epilogue; K6 in
-    bf16 and codes at lengths up to the full slab and at an S that is not a
-    multiple of 512. Returns the worst max|d| of each."""
+    """Phase 3: K7 held to its contract and K6 to bit equality with their
+    plain versions at the shapes the serving run does not give them
+    (``time_llama_attention`` checks the cold chunks and decode lengths it
+    does give): K7 on a warm slab with offsets, ViT-B/16 (timed there per
+    batch-8 forward: kernel, plain, SDPA, bound) and an unaligned shape, each
+    also with the requant epilogue, which must equal K1 of the kernel's own
+    context; K6 in bf16 and codes at lengths on its 64-key sub-chunk and
+    512-key block edges, up to the full slab, and at an S that is not a
+    multiple of 512. Returns the worst max|d| of each and K7's ViT times."""
     from fp8_quantization_tpu_torch.numerics.codec import pack_exmy
     from fp8_quantization_tpu_torch.ops.cuda import attention as k7
     from fp8_quantization_tpu_torch.ops.cuda import decode_attention as k6
@@ -1089,27 +1176,46 @@ def check_attention(spec, dev):
     gen = torch.Generator(device=dev).manual_seed(3)
     worst = {"K6": 0.0, "K7": 0.0}
     h, hk, d = spec.num_heads, spec.num_kv_heads, spec.head_dim
+    vb, vt, vh, vd = VIT_ATTENTION
     cases = [("Llama warm slab S=2048 with offsets", (4, 16, 2048, h, hk, d),
               dict(causal=True, offsets=[0, 100, 1000, 2032])),
-             ("ViT-B/16 batch 8", (8, 197, 197, 12, 12, 64), dict(s_valid=197)),
+             ("ViT-B/16 batch 8", (vb, vt, vt, vh, vh, vd), dict(s_valid=vt)),
              ("unaligned", (2, 37, 53, 6, 2, 40), dict(s_valid=45))]
     res = (torch.tensor(2.0, device=dev), torch.tensor(5, dtype=torch.int32, device=dev), 4, 1)
+    vit = None
     for name, (b, t, s, nh, nk, hd), kw in cases:
         q = _randn(gen, b, t, nh, hd, dev=dev).to(torch.bfloat16)
         k, v = (_randn(gen, b, s, nk, hd, dev=dev).to(torch.bfloat16) for _ in range(2))
         if "offsets" in kw:
             kw = {**kw, "offsets": torch.tensor(kw["offsets"], dtype=torch.int32, device=dev)}
         ours = k7.fused_sdpa(q, k, v, **kw)
-        err = _close_attention(f"K7 {name}", ours, k7.fused_sdpa_plain(q, k, v, **kw))
-        worst["K7"] = max(worst["K7"], err)
+        info = _sdpa_verdict(f"K7 {name}", ours, q, k, v, **kw)
+        worst["K7"] = max(worst["K7"], info["max_abs"])
         requant = k7.fused_sdpa(q, k, v, res_params=res, **kw)
-        exact = torch.equal(requant, quantize_block_plain(ours, *res))
-        if not exact:
+        if not torch.equal(requant, quantize_block_plain(ours, *res)):
             raise SystemExit(f"K7 {name}: the requant epilogue is not K1 of its context")
+        rinfo = _sdpa_verdict(f"K7 {name} with requant", requant, q, k, v, res_params=res, **kw)
         phase("kernels", f"K7 {name} q {tuple(q.shape)} kv {tuple(k.shape)} {sorted(kw)}: "
-                         f"max|d| {err:.3g} (tolerance 2e-3 * max(1, max|plain|)); requant "
-                         f"epilogue equal to K1 of the context")
-    for b, s, lengths in ((4, 2048, [1, 100, 1000, 2048]), (3, 700, [1, 513, 700])):
+                         f"within its contract, {info['equal_fraction']:.4f} of outputs equal "
+                         f"to plain, worst |d| / bound {info['worst_ratio']:.3g}, max|d| "
+                         f"{info['max_abs']:.3g}; requant epilogue equal to K1 of the context "
+                         f"and within its contract ({rinfo['equal_fraction']:.4f} equal)")
+        if name.startswith("ViT"):
+            ms = cuda_ms(lambda: k7.fused_sdpa(q, k, v, **kw), 5, SHORT_HEAD_START)
+            plain_ms = cuda_ms(lambda: k7.fused_sdpa_plain(q, k, v, **kw), 1)
+            lib_ms = cuda_ms(lambda: _sdpa_library(q, k, v), 5, SHORT_HEAD_START)
+            bytes_ms, ops_ms = _sdpa_bound(b, t, s, nh, nk, hd, b * t * s)
+            vit = {}
+            _add(vit, VIT_LAYERS, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                 bytes_ms=bytes_ms, ops_ms=ops_ms)
+            vit = _finish(vit)
+            vit["launches"] = VIT_LAYERS
+            phase("kernels", f"K7 ViT-B/16 per batch-8 forward ({VIT_LAYERS} launches): kernel "
+                             f"{vit['ms']:.4f} ms, plain {vit['plain_ms']:.4f} ms, SDPA "
+                             f"{vit['library_ms']:.4f} ms, bound {vit['bound_ms']:.4f} ms "
+                             f"({vit['bound_by']})")
+    for b, s, lengths in ((4, 2048, [1, 100, 1000, 2048]), (7, 640, [1, 63, 64, 65, 511, 512, 513]),
+                          (3, 700, [1, 513, 700])):
         q = _randn(gen, b, h, d, dev=dev)
         kf, vf = (_randn(gen, b, s, hk, d, dev=dev) for _ in range(2))
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
@@ -1119,13 +1225,12 @@ def check_attention(spec, dev):
                   pack_exmy(vf, 3, 4, vb, clip_of=True),
                   dict(k_bias=kb, v_bias=vb, kv_expo=3, kv_mant=4))]
         for form, ks, vs, kw in forms:
-            err = _close_attention(f"K6 {form} S={s}",
-                                   k6.decode_attention(q, ks, vs, lens, **kw),
-                                   k6.decode_attention_plain(q, ks, vs, lens, **kw))
-            worst["K6"] = max(worst["K6"], err)
+            _equal_decode(f"{form} S={s} lengths {lengths}",
+                          k6.decode_attention(q, ks, vs, lens, **kw),
+                          k6.decode_attention_plain(q, ks, vs, lens, **kw))
             phase("kernels", f"K6 {form} B={b} S={s} H={h} HK={hk} D={d} lengths {lengths}: "
-                             f"max|d| {err:.3g} (tolerance 2e-3 * max(1, max|plain|))")
-    return worst
+                             f"equal to plain bit for bit")
+    return worst, vit
 
 
 def _sdpa_library(q, k, v, **kw):
@@ -1139,13 +1244,14 @@ def _sdpa_library(q, k, v, **kw):
 
 def time_llama_attention(spec, dev, run, coded, worst):
     """K7 at every admission chunk and K6 at every decode step's lengths of
-    one serving run, held against their plain versions once more and timed
-    on seeded operands of those shapes: kernel (CUDA events, mean of 3-5
-    after a warm-up), plain version (1 run), ``scaled_dot_product_attention``
-    on the same bf16 operands (K6 on the decoded slab, with the length mask)
-    and the bound, the larger of the bytes over HBM bandwidth and 2 x 2 x
-    (query, key) pairs x D over the bf16 tensor-core peak. Totals are per
-    run: each shape's times x the layers. K7 only for the bf16 run (the
+    one serving run, held against their plain versions once more (K7 to its
+    contract, K6 bit for bit) and timed on seeded operands of those shapes:
+    kernel (CUDA events, mean of 3-5 after a warm-up), plain version (1 run),
+    ``scaled_dot_product_attention`` on the same bf16 operands (K6 on the
+    decoded slab, with the length mask) and the bound (K7: ``_sdpa_bound``;
+    K6: the K and V bytes below each length, q and out, against 2 x 2 x D
+    operations per (query head, key)). Totals are per run: each shape's times
+    x the layers; K6 also per decode step. K7 only for the bf16 run (the
     packed run's chunks are the same)."""
     from fp8_quantization_tpu_torch.numerics.codec import pack_exmy, unpack_exmy
     from fp8_quantization_tpu_torch.ops.cuda import attention as k7
@@ -1159,19 +1265,21 @@ def time_llama_attention(spec, dev, run, coded, worst):
         for t in run["chunks"]:
             q = _randn(gen, 1, t, h, d, dev=dev).to(torch.bfloat16)
             k, v = (_randn(gen, 1, t, hk, d, dev=dev).to(torch.bfloat16) for _ in range(2))
-            worst["K7"] = max(worst["K7"], _close_attention(
-                f"K7 T={t}", k7.fused_sdpa(q, k, v, causal=True),
-                k7.fused_sdpa_plain(q, k, v, causal=True)))
+            info = _sdpa_verdict(f"K7 T={t}", k7.fused_sdpa(q, k, v, causal=True), q, k, v,
+                                 causal=True)
+            worst["K7"] = max(worst["K7"], info["max_abs"])
             ms = cuda_ms(lambda: k7.fused_sdpa(q, k, v, causal=True), 5, SHORT_HEAD_START)
             plain_ms = cuda_ms(lambda: k7.fused_sdpa_plain(q, k, v, causal=True), 1)
             lib_ms = cuda_ms(lambda: _sdpa_library(q, k, v, is_causal=True), 5, SHORT_HEAD_START)
-            pairs = t * (t + 1) // 2
-            bytes_ms, ops_ms = _bound(2 * t * h * d + 2 * 2 * t * hk * d + 4 * t * h * d,
-                                      2 * 2 * h * d * pairs)
+            bytes_ms, ops_ms = _sdpa_bound(1, t, t, h, hk, d, t * (t + 1) // 2)
             _add(k7t, layers, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bytes_ms=bytes_ms,
                  ops_ms=ops_ms)
-            phase("kernels", f"K7 Llama chunk T={t} x{layers}/admission: kernel {ms:.4f} ms, "
-                             f"plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound "
+            flops = 3 * 2 * h * d * t * (t + 1) // 2
+            phase("kernels", f"K7 Llama chunk T={t} x{layers}/admission: within its contract, "
+                             f"{info['equal_fraction']:.4f} equal to plain, worst |d| / bound "
+                             f"{info['worst_ratio']:.3g}; kernel {ms:.4f} ms "
+                             f"({flops / ms / 1e9:.4g} TFLOP/s of its three dots), plain "
+                             f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound "
                              f"{max(bytes_ms, ops_ms):.4f} ms")
         out["K7"] = _finish(k7t)
     b, s = LLAMA_SLOTS, LLAMA_MAX_SEQ
@@ -1190,13 +1298,12 @@ def time_llama_attention(spec, dev, run, coded, worst):
     q16 = q.to(torch.bfloat16)[:, None]
     pos = torch.arange(s, device=dev)
     k6t = {}
-    for i, lengths in enumerate(run["step_lengths"]):
+    for lengths in run["step_lengths"]:
         lens = torch.tensor([n + 1 for n in lengths], dtype=torch.int32, device=dev)
         mask = (pos[None, :] < lens[:, None])[:, None, None, :]
-        if i % 8 == 0:
-            worst["K6"] = max(worst["K6"], _close_attention(
-                f"K6 step {i}", k6.decode_attention(q, ks, vs, lens, **kw),
-                k6.decode_attention_plain(q, ks, vs, lens, **kw)))
+        worst["K6"] = max(worst["K6"], _equal_decode(
+            f"step lengths {lengths}", k6.decode_attention(q, ks, vs, lens, **kw),
+            k6.decode_attention_plain(q, ks, vs, lens, **kw)))
         ms = cuda_ms(lambda: k6.decode_attention(q, ks, vs, lens, **kw), 3, SHORT_HEAD_START)
         plain_ms = cuda_ms(lambda: k6.decode_attention_plain(q, ks, vs, lens, **kw), 1)
         lib_ms = cuda_ms(lambda: _sdpa_library(q16, k16, v16, attn_mask=mask), 3,
@@ -1206,14 +1313,16 @@ def time_llama_attention(spec, dev, run, coded, worst):
                                   2 * 2 * h * d * keys)
         _add(k6t, layers, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bytes_ms=bytes_ms,
              ops_ms=ops_ms)
-    out["K6"] = _finish(k6t)
+    out["K6"] = t6 = _finish(k6t)
     steps = len(run["step_lengths"])
-    t6 = out["K6"]
+    t6["per_decode_step"] = {"launches": layers, "bound_by": t6["bound_by"],
+                             **{f: t6[f] / steps for f in ("ms", "bound_ms", "library_ms")}}
     phase("kernels", f"K6 ({'uint8 codes' if coded else 'bf16'}) over the run's {steps} decode "
-                     f"steps x{layers} layers: kernel {t6['ms']:.3f} ms "
-                     f"({1e3 * t6['ms'] / (steps * layers):.2f} us/launch), plain "
-                     f"{t6['plain_ms']:.3f} ms, SDPA {t6['library_ms']:.3f} ms, bound "
-                     f"{t6['bound_ms']:.3f} ms ({t6['bound_by']})")
+                     f"steps x{layers} layers, each step equal to plain bit for bit: kernel "
+                     f"{t6['ms']:.3f} ms ({1e3 * t6['ms'] / (steps * layers):.2f} us/launch, "
+                     f"{t6['per_decode_step']['ms']:.4f} ms/step), plain {t6['plain_ms']:.3f} ms, "
+                     f"SDPA {t6['library_ms']:.3f} ms ({t6['per_decode_step']['library_ms']:.4f} "
+                     f"ms/step), bound {t6['bound_ms']:.3f} ms ({t6['bound_by']})")
     return out
 
 
@@ -1500,36 +1609,59 @@ def tokens_agree_while_decided(toks, plain_toks, plain_margins, max_diff):
 
 def check_llama_uniform(dev, counters):
     """Phase 5: full-width Llama-3-8B at depth 2 in the uniform
-    configurations. w4a8 PACKED+fused on a bf16 cache through the kernels
-    (K5, K7, K6) and through their plain versions, from one calibrated and
-    packed state: equal prefill logits (max |d| 0: K5 is exact and K7, K6
-    equal their plain versions) and equal greedy tokens. Then
-    ``uniform_qc(8)`` under PACKED and CHAINED (``Coded`` int8 activations
-    between layers): bit-equal prefill and decode-step logits."""
+    configurations. w4a8 PACKED+fused on a bf16 cache, from one calibrated
+    and packed state, three ways. (1) Exactly: with K7 through its plain
+    version on both sides (its tensor cores sum in their own order), the
+    prefill logits and greedy tokens through K5 and K6 equal those through
+    their plain versions (max |d| 0: K5 is integer-exact and K6 sums in its
+    plain version's order). (2) K7 held on its own inputs: the same prefill
+    and tokens through every kernel, each K7 call within its contract
+    (``verified_attention``). Then ``uniform_qc(8)`` under PACKED and
+    CHAINED (``Coded`` int8 activations between layers): bit-equal prefill
+    and decode-step logits."""
     from fp8_quantization_tpu_torch.models.llama import LLAMA3_8B
     from fp8_quantization_tpu_torch.models.serving import pack_llama
+    from fp8_quantization_tpu_torch.ops.cuda import attention as k7
     from fp8_quantization_tpu_torch.quant.sites import QuantPhase
 
     spec = dataclasses.replace(LLAMA3_8B, num_layers=2)
     model = calibrated_llama(spec, dev, seed=1, qc=llama_w4a8_qc())
     pack_llama(model)
     qp = serving_phase(True)
+    sdpa = k7.fused_sdpa
     zero_counts(counters)
-    logits, toks = depth2_prefill(model, spec, qp, dev)[0], depth2_generate(model, spec, qp)
+    k7.fused_sdpa = k7.fused_sdpa_plain
+    try:
+        logits, toks = depth2_prefill(model, spec, qp, dev)[0], depth2_generate(model, spec, qp)
+    finally:
+        k7.fused_sdpa = sdpa
     counts = read_counts(counters)
     with plain_kernels():
         plain_logits, plain_toks = (depth2_prefill(model, spec, qp, dev)[0],
                                     depth2_generate(model, spec, qp))
     diff = float((logits - plain_logits).abs().max())
+    zero_counts(counters)
+    with verified_attention({}) as held:
+        kernel_logits = depth2_prefill(model, spec, qp, dev)[0]
+        kernel_toks = depth2_generate(model, spec, qp)
+    kernel_counts = read_counts(counters)
     ok = (torch.equal(logits, plain_logits) and toks == plain_toks
           and bool(torch.isfinite(logits).all()) and logits.shape[1] == spec.vocab_size
-          and min(counts["K5"], counts["K7"], counts["K6"]) > 0
+          and min(counts["K5"], counts["K6"]) > 0 and counts["K7"] == 0
           and counts["K1"] == counts["K2"] == counts["K4"] == 0
-          and read_counts(counters) == counts and not model.packed_kv)
-    phase("model", f"Llama-3-8B width {spec.hidden_size}, depth 2, w4a8 PACKED+fused, bf16 KV: "
-                   f"prefill logits ({logits.shape[0]} tokens) max|kernel - plain| {diff:.3g}; "
-                   f"greedy tokens {toks} {'equal' if toks == plain_toks else 'DIFFER: ' + str(plain_toks)}"
-                   f"; launches {counts}; ok={ok}")
+          and held["K7"] == kernel_counts["K7"] > 0 and kernel_counts["K1"] == 0
+          and bool(torch.isfinite(kernel_logits).all())
+          and read_counts(counters) == kernel_counts and not model.packed_kv)
+    kernel_diff = float((kernel_logits - plain_logits).abs().max())
+    phase("model", f"Llama-3-8B width {spec.hidden_size}, depth 2, w4a8 PACKED+fused, bf16 KV, "
+                   f"K7 through its plain version on both sides: prefill logits "
+                   f"({logits.shape[0]} tokens) max|kernel - plain| {diff:.3g}; greedy tokens "
+                   f"{toks} {'equal' if toks == plain_toks else 'DIFFER: ' + str(plain_toks)}; "
+                   f"launches {counts}. Through every kernel: {held['K7']} K7 calls within "
+                   f"their contract (min equal fraction {held['min_equal']:.4f}, worst |d| / "
+                   f"bound {held['worst_ratio']:.3g}), prefill logits max|d| {kernel_diff:.3g}, "
+                   f"tokens {'equal' if kernel_toks == plain_toks else 'differ: ' + str(kernel_toks)}"
+                   f"; launches {kernel_counts}; ok={ok}")
     if not ok:
         raise SystemExit("Llama depth 2 w4a8: kernels and plain versions disagree")
     del model
@@ -1560,9 +1692,10 @@ def check_llama_model(dev, counters):
     through their plain versions, from one calibrated state, under FAST+fused
     and then (packed and stripped in place) PACKED+packed_kv+fused. The
     prefill runs K2/K4 route B, whose tensor cores sum in their own order;
-    decode (M <= 2) is route A and exact. Every K2/K4 call of the kernel run
-    is held to its route's contract with the plain version on its own
-    inputs (``verified_gemms``); the prefill logits to ``RMS_LIMIT`` and to
+    decode (M <= 2) is route A and exact. Every K2/K4 and K7 call of the
+    kernel run is held to its contract with the plain version on its own
+    inputs (``verified_gemms``, ``verified_attention``), and every K1 call to
+    equality; the prefill logits to ``RMS_LIMIT`` and to
     the same argmax wherever the plain top-1/top-2 margin is at least twice
     their max |d|; the greedy tokens of two prompts through the batcher to
     ``tokens_agree_while_decided``. Decode is then held exactly: with the
@@ -1582,7 +1715,7 @@ def check_llama_model(dev, counters):
             return depth2_prefill(model, spec, qp, dev)[0]
 
         zero_counts(counters)
-        with verified_gemms({}) as calls:
+        with verified_gemms({}) as calls, verified_attention({}) as held:
             logits = prefill()
             toks = depth2_generate(model, spec, qp)
         counts = read_counts(counters)
@@ -1609,12 +1742,16 @@ def check_llama_model(dev, counters):
                  and all(torch.equal(a, b) for a, b in zip(mixed_calls, plain_calls))
                  and mixed["K7"] == 0 and min(mixed["K6"], mixed[dense], mixed["K1"]) > 0)
         ok = (bool(torch.isfinite(logits).all()) and rms_ok and same and agree and exact
-              and logits.shape[1] == spec.vocab_size and calls["calls"] == counts[dense])
+              and logits.shape[1] == spec.vocab_size and calls["calls"] == counts[dense]
+              and held["K7"] == counts["K7"] and held["K1"] == counts["K1"])
         phase("model", f"Llama-3-8B width {spec.hidden_size}, depth 2, {name}: prefill logits "
                        f"({logits.shape[0]} tokens) max|kernel - plain| {diff:.3g}, {rms_line}, "
                        f"same argmax where decided {same} ({int(decided.sum())} of "
                        f"{decided.numel()} positions decided); {calls['calls']} {dense} calls "
-                       f"(routes {sorted(calls['routes'])}) within their contract; greedy tokens {toks} "
+                       f"(routes {sorted(calls['routes'])}) and {held['K7']} K7 calls (min equal "
+                       f"fraction {held['min_equal']:.4f}, worst |d| / bound "
+                       f"{held['worst_ratio']:.3g}) within their contract, {held['K1']} K1 "
+                       f"calls equal to plain; greedy tokens {toks} "
                        f"{'equal' if toks == plain_toks else 'differ: plain ' + str(plain_toks)}; "
                        f"the token rule compared {compared} decided tokens (plain top-1/top-2 "
                        f"margin at least 2 x {diff:.3g}; margins "
@@ -1628,11 +1765,12 @@ def check_llama_model(dev, counters):
 def check_vit_fused(cli, dev, spec, counters):
     """Phase 5: the published-flag ViT under FAST with ``fused_sdpa=True``
     through the kernels (K1, K2, K7) and their plain versions. At batch 1
-    (M = 197) K2 takes route B, whose sums may put a requant output one grid
-    step from the plain one at a rounding midpoint, and such a step carries
-    through the later sites: every K2 call of the kernel forward is held to
-    its route's contract with the plain version on its own inputs
-    (``verified_gemms``), and the logits to ``RMS_LIMIT`` and the same
+    (M = 197) K2 takes route B, and K7 runs on the tensor cores, whose sums
+    may put a requant output one grid step from the plain one at a rounding
+    midpoint, and such a step carries through the later sites: every K2 and
+    K7 call of the kernel forward is held to its contract with the plain
+    version on its own inputs (``verified_gemms``, ``verified_attention``),
+    every K1 call to equality, and the logits to ``RMS_LIMIT`` and the same
     top-1."""
     from fp8_quantization_tpu_torch.quant.sites import QuantPhase
 
@@ -1644,7 +1782,7 @@ def check_vit_fused(cli, dev, spec, counters):
             return model(xt, qp).float()
 
     zero_counts(counters)
-    with verified_gemms({}) as calls:
+    with verified_gemms({}) as calls, verified_attention({}) as held:
         logits = forward()
     counts = read_counts(counters)
     with plain_kernels():
@@ -1654,10 +1792,13 @@ def check_vit_fused(cli, dev, spec, counters):
     same = bool((logits.argmax(-1) == plain.argmax(-1)).all())
     ok = (counts["K7"] == spec.num_layers and counts["K2"] == 6 * spec.num_layers + 1
           and counts["K1"] > 0 and read_counts(counters) == counts and same and rms_ok
-          and calls["calls"] == counts["K2"] and bool(torch.isfinite(logits).all()))
+          and calls["calls"] == counts["K2"] and bool(torch.isfinite(logits).all())
+          and held["K7"] == counts["K7"] and held["K1"] == counts["K1"])
     phase("model", f"ViT-B/16 FAST+fused, depth {spec.num_layers}, batch 1: {calls['calls']} K2 "
                    f"calls (routes {sorted(calls['routes'])}) each within its contract with plain "
-                   f"on its own inputs (min equal fraction {calls['min_equal']:.4f}); logits "
+                   f"on its own inputs (min equal fraction {calls['min_equal']:.4f}), {held['K7']} "
+                   f"K7 calls within theirs (min equal fraction {held['min_equal']:.4f}, worst "
+                   f"|d| / bound {held['worst_ratio']:.3g}), {held['K1']} K1 calls equal; logits "
                    f"max|kernel - plain| {diff:.3g}, {rms_line}, same top-1 {same}, "
                    f"launches {counts}, ok={ok}")
     if not ok:
@@ -1775,20 +1916,25 @@ def main() -> int:
     mix = sass_mix.instruction_mix(built["approx_matmul"]["path"])
     phase("build", f"K3 flagship loop: {mix['instructions_per_product']:.4g} instructions "
                    f"per product, by class {mix['per_product_by_class']}")
-    tc_mix = sass_mix.tensor_core_mix({n: built[n]["path"] for n in sass_mix.GEMM_SOURCES})
+    tc_mix = sass_mix.tensor_core_mix({n: built[n]["path"]
+                                       for n in sass_mix.TENSOR_CORE_KERNELS})
     for name, funcs in tc_mix.items():
+        kernel = sass_mix.TENSOR_CORE_KERNELS[name]
         phase("build", f"{name} tensor-core instructions (HMMA/HGMMA) per kernel: "
-                       + ", ".join(f"{fn.split('gemm_kernel')[0][-6:]}gemm_kernel"
-                                   f"{fn.split('gemm_kernel')[1][:14]} {c}"
+                       + ", ".join(f"{fn.split(kernel)[0][-6:]}{kernel}"
+                                   f"{fn.split(kernel)[1][:14]} {c}"
                                    for fn, c in funcs.items()))
-    if not sass_mix.route_b_uses_tensor_cores(tc_mix):
+    if not sass_mix.uses_tensor_cores(tc_mix, "mma_gemm"):
         raise SystemExit("route B of K2/K4 has no tensor-core instruction in its SASS")
+    if not sass_mix.uses_tensor_cores(tc_mix, "sdpa_kernel"):
+        raise SystemExit("K7 has no tensor-core instruction in its SASS")
 
     # 3. kernels against their plain versions
     max_err, k3_times = check_kernel_against_plain(k3, dev, mix["instructions_per_product"])
     gemm_err = check_gemms(fm, dm, dev)
     gemm_err["K1"] = check_k1(fm, dev)
-    gemm_err.update(check_attention(LLAMA3_8B, dev))
+    attention_err, k7_vit = check_attention(LLAMA3_8B, dev)
+    gemm_err.update(attention_err)
     check_k5(dm, dev)
 
     # 4. the main path: each run with every launch count zeroed just before
@@ -1871,14 +2017,23 @@ def main() -> int:
         "bound_ms": times[key]["bound_ms"],
         "bound_by": times[key]["bound_by"],
         "library_ms": times[key].get("library_ms"),
-        # K2 and K4 also per Llama-3-8B decode step (M = 4, route A)
+        # K2, K4 and K6 also per Llama-3-8B decode step (K2/K4: M = 4, route
+        # A), K7 also per batch-8 ViT-B/16 forward
         **({"per_decode_step": {f: llama_gemms[key]["step"][f] for f in
                                 ("launches", "ms", "bound_ms", "bound_by", "library_ms")}}
            if key in llama_gemms else {}),
+        **({"per_decode_step": times[key]["per_decode_step"]} if key == "K6" else {}),
+        **({"per_vit_forward": {f: k7_vit[f] for f in
+                                ("launches", "ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")}} if key == "K7" else {}),
     } for name, key, src, tpu, launches, err in kernels]}
-    step = "; ".join(f"{key} {t['step']['ms']:.3f} ms (bound {t['step']['bound_ms']:.3f}, "
-                     f"torch.matmul {t['step']['library_ms']:.3f})"
-                     for key, t in llama_gemms.items())
+    step = "; ".join([f"{key} {t['step']['ms']:.3f} ms (bound {t['step']['bound_ms']:.3f}, "
+                      f"torch.matmul {t['step']['library_ms']:.3f})"
+                      for key, t in llama_gemms.items()]
+                     + [f"{key} {t['ms']:.4f} ms (bound {t['bound_ms']:.4f}, SDPA "
+                        f"{t['library_ms']:.4f})" for key, t in
+                        (("K6", times["K6"]["per_decode_step"]),
+                         ("K6 codes", times["K6 codes"]["per_decode_step"]))])
     per_forward = "; ".join(
         f"{key} {t['ms']:.3f} ms (plain {t['plain_ms']:.3f}, bound {t['bound_ms']:.3f}"
         + (f", library {t['library_ms']:.3f}" if t.get("library_ms") is not None else "")
@@ -1891,7 +2046,9 @@ def main() -> int:
                   + ", ".join(f"{mode} {serving[mode][1]:.2f}" for mode in SERVING_FLAGS)
                   + f"; {served}; per batch-{BATCH} forward (K1-K4) or serving run (K5, K6, "
                   "K7): "
-                  f"{per_forward}; per Llama-3-8B decode step: {step}; "
+                  f"{per_forward}; K7 per batch-{BATCH} ViT-B/16 forward {k7_vit['ms']:.4f} ms "
+                  f"(SDPA {k7_vit['library_ms']:.4f}, bound {k7_vit['bound_ms']:.4f}); per "
+                  f"Llama-3-8B decode step: {step}; "
                   f"{time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -65,6 +65,7 @@
 #include <cstdint>
 
 #include "exmy.cuh"
+#include "mma.cuh"
 
 namespace fp8q {
 
@@ -87,22 +88,6 @@ struct GemmArgs {
   int w_expo, w_mant;        // coded w: field widths
   const int* w_bias;         // coded w: (N,) int32 packing biases
 };
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // One x element as both routes feed it: quantized (f32 x with quantize_x) and
 // rounded to bf16, widened from bf16, or decoded from a code.
@@ -128,11 +113,6 @@ __device__ __forceinline__ void store_out(const GemmArgs& g, int out_bf16, const
   } else {
     static_cast<float*>(g.out)[off] = v;
   }
-}
-
-__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
-  return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
-         ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
 }
 
 // ---------------------------------------------------------------------------
@@ -502,29 +482,6 @@ __device__ __forceinline__ int a_off(int m, int k) {
 }
 __device__ __forceinline__ int b_off(int k, int n) {
   return k * B_BN + (((n >> 3) ^ (k & 7)) << 3) + (n & 7);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Raw operand pieces a thread holds between the global load and the

@@ -34,10 +34,13 @@ from ..ops.cuda import decode_attention as k6
 
 # the STAMP(i) slots of each kernel's source, in order
 PHASES = {
-    "K6": ("setup", "K staged", "scores", "softmax", "V staged", "p @ v", "acc update",
-           "epilogue"),
+    "K6": ("setup", "K landed (and decoded)", "scores", "sub-chunk max and cluster barrier",
+           "block max, p, sum(p), V landed (and decoded)", "p @ v", "cluster barrier",
+           "combine (CTA 0)", "epilogue"),
+    "K7": ("setup", "tile landed", "q k^T and mask", "pass 1 max and sum",
+           "pass 2 p and p @ v", "epilogue"),
 }
-SOURCES = {"K6": ("decode_attention", k6)}
+SOURCES = {"K6": ("decode_attention", k6), "K7": ("attention", k7)}
 # decode-step lengths of Llama-3-8B serving in chip_smoke.py (prompts of 17,
 # 100, 256 and 511 tokens): the first step, a middle one and the last
 LENGTHS = ((18, 101, 257, 512), (34, 117, 273, 528), (49, 132, 288, 543))

@@ -10,13 +10,23 @@ launches the kernel or raises.
 
 Both walk the TPU kernel's key blocks (``bs = min(bs, round_up(S, 128))``,
 S padded to a multiple) in order with its online softmax, rounding the
-unnormalized ``p = exp(s - m_new)`` to bf16 before ``p @ v``. The plain
-version also takes the kernel's order: each score's lanes sum d, d + 32, ...
-and the warp reduces them, each block's ``sum(p)`` likewise over keys, and
-``p @ v`` runs over keys ascending, so the two agree bit for bit where their
-``exp`` does (the stated tolerance, ``2e-3 * max(1, max|plain|)``, is the
-JAX attention tests' own 2e-3, which the plain version meets against the
-Pallas kernel).
+unnormalized ``p = exp(s - m_new)`` to bf16 before ``p @ v``. The kernel
+spreads each block over a cluster of CTAs, one sub-chunk of ``SUB_CHUNK``
+keys each, and the plain version takes the kernel's order of every sum, so
+the two are equal bit for bit where their ``exp`` does:
+
+- each score: the products summed over d in order, one f32 chain;
+- the block max is order-free, so ``m_new``, ``corr`` and ``p`` are the TPU
+  kernel's;
+- a sub-chunk's ``sum(p)``: lane ``l`` adds ``p[l]`` and ``p[l + 32]``, then
+  the warp's xor tree (:func:`~.attention.warp_sum`); its ``bf16(p) @ v``:
+  one f32 chain per output over its keys in order;
+- the block's ``sum(p)`` and ``p @ v``: the sub-chunks' partial sums added
+  in ascending sub-chunk order, then ``l = l * corr + sum`` and
+  ``acc = acc * corr + pv``.
+
+Against the Pallas kernel, whose sums run in XLA's order, the plain version
+agrees within the JAX attention tests' own ``2e-3``.
 """
 
 from __future__ import annotations
@@ -66,12 +76,22 @@ def block_size(s: int, bs: int = 512) -> int:
     return min(bs, _round_up(s, 128))
 
 
+# keys of a block that one CTA of the kernel's cluster takes, and the most
+# sub-chunks a block may have (the cluster's size; csrc/decode_attention.cu)
+SUB_CHUNK = 64
+MAX_SUB_CHUNKS = 8
+# the kernel's limits on the head dim and on query heads per kv head
+MAX_HEAD_DIM = 256
+MAX_GROUP = 8
+
+
 def decode_attention_plain(q, k_slab, v_slab, lengths, *, k_bias=None, v_bias=None,
                            kv_expo: Optional[int] = None, kv_mant: Optional[int] = None,
                            bs: int = 512):
     """K6's plain version: the TPU kernel's blocks and online softmax in the
-    CUDA kernel's order, vectorized over slots and heads. Keys at or past
-    every slot's length add exact zeros, so the walk stops there."""
+    CUDA kernel's order (see the module docstring), vectorized over slots,
+    heads and sub-chunks. Keys at or past every slot's length add exact
+    zeros, so the walk stops there."""
     _check(q, k_slab, v_slab, lengths, k_bias, v_bias, kv_expo, kv_mant, bs)
     b, h, d = q.shape
     s, hk = k_slab.shape[1], k_slab.shape[2]
@@ -79,51 +99,64 @@ def decode_attention_plain(q, k_slab, v_slab, lengths, *, k_bias=None, v_bias=No
     dev = q.device
     bs = block_size(s, bs)
     sp = _round_up(s, bs)
+    nsub = -(-bs // SUB_CHUNK)
     lens = torch.as_tensor(lengths).to(device=dev, dtype=torch.int32)
     kend = int(torch.where(lens >= 1, lens.clamp(max=sp), sp).max())
 
-    def load(slab, bias):
+    def load(slab, bias, rows):
         if bias is None:
             x = slab.to(torch.bfloat16)
         else:
             eb, ss = unpack_consts(to_int32(bias, dev).reshape(()), kv_mant)
             x = unpack_exmy_bits(slab, kv_expo, kv_mant, eb, ss, dtype=torch.bfloat16)
-        # (B, HK, S_p, D): zero rows past S, as the TPU kernel pads
-        return F.pad(x.to(torch.float32), (0, 0, 0, 0, 0, sp - s)).permute(0, 2, 1, 3)
+        # (B, HK, rows, D): zero rows past S, as the TPU kernel pads
+        return F.pad(x.to(torch.float32), (0, 0, 0, 0, 0, rows - s)).permute(0, 2, 1, 3)
 
-    kf, vf = load(k_slab, k_bias), load(v_slab, v_bias)
-    # d = j * 32 + lane: each lane sums its j ascending, then the warp reduces
-    dl = _round_up(d, LANES)
-    qg = F.pad(q.to(torch.bfloat16).to(torch.float32), (0, dl - d))
-    qg = qg.reshape(b, hk, g, dl // LANES, LANES)
-    kl = F.pad(kf, (0, dl - d)).reshape(b, hk, sp, dl // LANES, LANES)
+    # v also pads the last block's sub-chunks to SUB_CHUNK keys each
+    kf = load(k_slab, k_bias, sp)
+    vf = load(v_slab, v_bias, sp - bs + nsub * SUB_CHUNK)
+    qg = q.to(torch.bfloat16).to(torch.float32).reshape(b, hk, g, d)
     scale = torch.tensor(1.0 / float(d) ** 0.5, dtype=torch.float32, device=dev)
     masked = torch.tensor(-1e30, device=dev)
     m = torch.full((b, hk, g), -1e30, device=dev)
     l = torch.zeros_like(m)
     acc = torch.zeros((b, hk, g, d), device=dev)
     for base in range(0, kend, bs):
-        part = torch.zeros((b, hk, g, bs, LANES), device=dev)
-        for j in range(dl // LANES):
-            part.addcmul_(qg[:, :, :, None, j], kl[:, :, None, base:base + bs, j])
-        scores = warp_sum(part) * scale                                  # (B, HK, G, bs)
+        # each score summed over d in order, one f32 chain
+        scores = torch.zeros((b, hk, g, bs), device=dev)
+        for j in range(d):
+            scores.addcmul_(qg[:, :, :, None, j], kf[:, :, None, base:base + bs, j])
+        scores = scores * scale                                          # (B, HK, G, bs)
         pos = base + torch.arange(bs, device=dev)
         scores = torch.where((pos[None, :] < lens[:, None])[:, None, None, :], scores, masked)
         m_new = torch.maximum(m, scores.amax(dim=-1))
         corr = torch.exp(m - m_new)
-        p = torch.exp(scores - m_new[..., None])
-        lane_sums = F.pad(p, (0, -bs % LANES)).unflatten(-1, (-1, LANES))
-        psum = torch.zeros_like(lane_sums[..., 0, :])
-        for row in range(lane_sums.shape[-2]):
-            psum = psum + lane_sums[..., row, :]
-        l = l * corr + warp_sum(psum)
+        p = F.pad(torch.exp(scores - m_new[..., None]), (0, nsub * SUB_CHUNK - bs))
+        p = p.unflatten(-1, (nsub, SUB_CHUNK))                           # (..., nsub, SUB)
+        # each sub-chunk's sum(p): lane l adds p[l], p[l + 32], then the tree
+        halves = p.unflatten(-1, (SUB_CHUNK // LANES, LANES))
+        lane_sums = halves[..., 0, :]
+        for row in range(1, SUB_CHUNK // LANES):
+            lane_sums = lane_sums + halves[..., row, :]
+        l = l * corr + _ascending(warp_sum(lane_sums))
+        # each sub-chunk's bf16(p) @ v: one chain per output, keys in order
         p = p.to(torch.bfloat16).to(torch.float32)
-        pv = torch.zeros_like(acc)
-        for c in range(min(bs, kend - base)):
-            pv.addcmul_(p[..., c, None], vf[:, :, None, base + c])
-        acc = acc * corr[..., None] + pv
+        vb = vf[:, :, base:base + nsub * SUB_CHUNK].unflatten(2, (nsub, SUB_CHUNK))
+        pv = torch.zeros((b, hk, g, nsub, d), device=dev)
+        for r in range(min(SUB_CHUNK, kend - base)):
+            pv.addcmul_(p[..., r, None], vb[:, :, None, :, r])
+        acc = acc * corr[..., None] + _ascending(pv.movedim(3, -1))
         m = m_new
     return (acc / l[..., None]).reshape(b, h, d)
+
+
+def _ascending(parts):
+    """The partial sums of the last axis added in ascending order, as the
+    cluster's CTA 0 adds its sub-chunks'."""
+    total = parts[..., 0]
+    for c in range(1, parts.shape[-1]):
+        total = total + parts[..., c]
+    return total
 
 
 @functools.lru_cache(maxsize=None)
@@ -164,6 +197,12 @@ def decode_attention(q, k_slab, v_slab, lengths, *, k_bias=None, v_bias=None,
         raise TypeError(f"the cache slab must be bfloat16 or uint8 codes, got {k_slab.dtype}")
     b, h, d = q.shape
     s, hk = k_slab.shape[1], k_slab.shape[2]
+    if d > MAX_HEAD_DIM or d % 2 or h // hk > MAX_GROUP:
+        raise ValueError(f"head dim {d} and {h // hk} query heads per kv head: the kernel "
+                         f"takes an even head dim up to {MAX_HEAD_DIM} and up to {MAX_GROUP}")
+    if -(-block_size(s, bs) // SUB_CHUNK) > MAX_SUB_CHUNKS:
+        raise ValueError(f"the kernel's key block is at most {MAX_SUB_CHUNKS * SUB_CHUNK} "
+                         f"keys, got bs={bs}")
     q32 = q.to(torch.float32).contiguous()
     k_slab, v_slab = k_slab.contiguous(), v_slab.contiguous()
     lens = lens.to(torch.int32).contiguous()

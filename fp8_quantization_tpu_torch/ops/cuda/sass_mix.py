@@ -1,5 +1,5 @@
 """Instruction mix of K3's main loop, and the tensor-core instructions of
-the GEMMs K2 and K4, read from the compiled SASS.
+the GEMMs K2 and K4 and of the fused SDPA K7, read from the compiled SASS.
 
     python -m fp8_quantization_tpu_torch.ops.cuda.sass_mix
 
@@ -11,9 +11,9 @@ it by class. One pass of that loop does ``BK * RM * RN`` products per
 thread, so the count per product, staging included, is the loop's length
 over that; it feeds the kernel's operation bound. Prints one JSON object.
 :func:`tensor_core_mix` counts the tensor-core instructions (``HMMA`` of
-``mma.sync``, ``HGMMA`` of ``wgmma``) in each route of K2 and K4: route B
-(``mma_gemm_kernel``) must have them, route A (``stream_gemm_kernel``) sums
-on the CUDA cores. Needs the CUDA toolkit, so it runs on the GPU machine
+``mma.sync``, ``HGMMA`` of ``wgmma``) in each route of K2 and K4 and in the
+fused SDPA K7: route B (``mma_gemm_kernel``) and K7 (``sdpa_kernel``) must
+have them, route A (``stream_gemm_kernel``) sums on the CUDA cores. Needs the CUDA toolkit, so it runs on the GPU machine
 only.
 """
 
@@ -108,26 +108,32 @@ def _sass(path: str) -> str:
 
 
 TENSOR_CORE_OPS = ("HMMA", "HGMMA")
-GEMM_SOURCES = ("fused_matmul", "dequant_matmul")
+# the sources whose tensor-core instructions are counted, and the name every
+# counted kernel function of each holds: both routes of K2 and K4 (route A
+# ``stream_gemm_kernel``, route B ``mma_gemm_kernel``) and K7's
+# ``sdpa_kernel``
+TENSOR_CORE_KERNELS = {"fused_matmul": "gemm_kernel", "dequant_matmul": "gemm_kernel",
+                       "attention": "sdpa_kernel"}
 
 
 def tensor_core_mix(paths: dict | None = None) -> dict:
     """``{source: {kernel function: tensor-core instruction count}}`` for the
-    GEMM kernels (route A ``stream_gemm_kernel``, route B
-    ``mma_gemm_kernel``) of the built K2 and K4 libraries (``paths``:
-    ``{source: library path}``, built first when not given)."""
-    paths = paths or {n: v["path"] for n, v in build.build_all(GEMM_SOURCES).items()}
+    kernel functions of :data:`TENSOR_CORE_KERNELS` in the built libraries
+    (``paths``: ``{source: library path}``, built first when not given)."""
+    paths = paths or {n: v["path"] for n, v in build.build_all(TENSOR_CORE_KERNELS).items()}
     out = {}
-    for name in GEMM_SOURCES:
+    for name, kernel in TENSOR_CORE_KERNELS.items():
         funcs = _functions(_sass(paths[name]))
         out[name] = {fn: sum(op in TENSOR_CORE_OPS for _, op, _ in instrs)
-                     for fn, instrs in funcs.items() if "gemm_kernel" in fn}
+                     for fn, instrs in funcs.items() if kernel in fn}
     return out
 
 
-def route_b_uses_tensor_cores(mix: dict) -> bool:
-    """Every route B function has tensor-core instructions."""
-    counts = [c for funcs in mix.values() for fn, c in funcs.items() if "mma_gemm" in fn]
+def uses_tensor_cores(mix: dict, kernel: str) -> bool:
+    """Every counted function whose name holds ``kernel`` (``"mma_gemm"``:
+    route B of K2 and K4; ``"sdpa_kernel"``: K7) has tensor-core
+    instructions."""
+    counts = [c for funcs in mix.values() for fn, c in funcs.items() if kernel in fn]
     return bool(counts) and min(counts) > 0
 
 

@@ -120,6 +120,9 @@ DECODE_CASES = {
     "bf16_s_not_a_block_multiple": (3, 160, 8, 4, 16, [1, 80, 160], 64, False),
     "coded": (2, 96, 8, 2, 16, [32, 96], 64, True),
     "coded_lengths_mid_block": (3, 100, 4, 2, 8, [1, 65, 99], 32, True),
+    # lengths on the CUDA kernel's 64-key sub-chunk and 512-key block edges
+    "lengths_on_sub_chunk_and_block_edges": (7, 576, 4, 2, 8, [1, 63, 64, 65, 511, 512, 513],
+                                             512, False),
 }
 
 
