@@ -36,6 +36,8 @@
 
 #include <cuda_runtime.h>
 
+#include "stamps.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -79,6 +81,7 @@ __global__ void __launch_bounds__(THREADS) int4_kernel(Int4Args a) {
   const int m0 = blockIdx.y * BM;
   const int r_begin = blockIdx.z * a.rows_per_split;
   const int r_end = min(a.K2, r_begin + a.rows_per_split);
+  STAMP_DECL
 
   int acc[BM][4];
 #pragma unroll
@@ -87,6 +90,7 @@ __global__ void __launch_bounds__(THREADS) int4_kernel(Int4Args a) {
     for (int j = 0; j < 4; ++j) acc[m][j] = 0;
 
   signed char* xb = reinterpret_cast<signed char*>(&xs[0][0]);
+  STAMP(0);
   for (int c0 = r_begin; c0 < r_end; c0 += KC) {
     const int nc = min(KC, r_end - c0);
     __syncthreads();
@@ -103,6 +107,7 @@ __global__ void __launch_bounds__(THREADS) int4_kernel(Int4Args a) {
       xb[((m * (KC / 4) + (i >> 2)) * 2 + half) * 4 + (i & 3)] = v;
     }
     __syncthreads();
+    STAMP(1);
 
     const int ngroups = (nc + 3) / 4;
     for (int g0 = warp; g0 < ngroups; g0 += WARPS * UNROLL) {
@@ -142,6 +147,7 @@ __global__ void __launch_bounds__(THREADS) int4_kernel(Int4Args a) {
         }
       }
     }
+    STAMP(2);
   }
 
   // the warps' partial sums meet in shared memory, then one store (or one
@@ -154,6 +160,7 @@ __global__ void __launch_bounds__(THREADS) int4_kernel(Int4Args a) {
     for (int j = 0; j < 4; ++j)
       if (acc[m][j] != 0) atomicAdd(&red[m][lane * 4 + j], acc[m][j] >> 4);
   __syncthreads();
+  STAMP(3);
   for (int i = tid; i < BM * BN; i += THREADS) {
     const int m = i / BN, c = i % BN;
     const int row = m0 + m, col = blockIdx.x * BN + c;
@@ -165,6 +172,8 @@ __global__ void __launch_bounds__(THREADS) int4_kernel(Int4Args a) {
       atomicAdd(dst, red[m][c]);
     }
   }
+  STAMP(4);
+  STAMP_STORE((blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x);
 }
 
 template <int BM>

@@ -1,6 +1,6 @@
-"""Where the time of one attention-kernel launch goes, by phase.
+"""Where the time of one kernel launch goes, by phase.
 
-    python -m fp8_quantization_tpu_torch.eval.stamps [--kernel K6|K7] [--reps N]
+    python -m fp8_quantization_tpu_torch.eval.stamps [--kernel K5|K6|K7] [--reps N]
 
 Builds the kernel's source once more with ``-DFP8Q_STAMPS``
 (``csrc/stamps.cuh``: thread 0 of every CTA adds the ``clock64()`` cycles
@@ -12,8 +12,10 @@ end and when the last one started, and the cycles of every phase: the mean
 over the CTAs and the CTA that took longest. Shapes: K6 (decode attention)
 at Llama-3-8B's decode (4 slots of a 2048-key slab, 32 query and 8 kv heads
 of 128) in bf16 and in uint8 codes at three steps' lengths; K7 (fused SDPA)
-at Llama-3-8B's cold prefill chunks and ViT-B/16's batch-8 attention. Each
-output is also held to its plain version (K6 equal, K7 within its contract).
+at Llama-3-8B's cold prefill chunks and ViT-B/16's batch-8 attention; K5
+(int4 nibble GEMM) at Llama-3-8B's four decode projection shapes (M = 4
+slots) and a 512-row prefill chunk of the gate projection. Each output is
+also held to its plain version (K5 and K6 equal, K7 within its contract).
 Needs a GPU; the port's own libraries are never built with the stamps.
 """
 
@@ -31,6 +33,7 @@ import torch
 from ..ops.cuda import attention as k7
 from ..ops.cuda import build
 from ..ops.cuda import decode_attention as k6
+from ..ops.cuda import dequant_matmul as k5
 
 # the STAMP(i) slots of each kernel's source, in order
 PHASES = {
@@ -39,20 +42,30 @@ PHASES = {
            "combine (CTA 0)", "epilogue"),
     "K7": ("setup", "tile landed", "q k^T and mask", "pass 1 max and sum",
            "pass 2 p and p @ v", "epilogue"),
+    "K5": ("setup", "x chunk staged (byte loads, two barriers)", "weight loads and __dp4a",
+           "partial sums in shared memory", "store or global atomic add"),
 }
-SOURCES = {"K6": ("decode_attention", k6), "K7": ("attention", k7)}
+# per kernel: its source, wrapper module, the module's library loader and
+# the C entry
+SOURCES = {"K5": ("int4_matmul", k5, "_int4_lib", "fp8q_int4_matmul"),
+           "K6": ("decode_attention", k6, "_lib", "fp8q_decode_attention"),
+           "K7": ("attention", k7, "_lib", "fp8q_fused_sdpa")}
 # decode-step lengths of Llama-3-8B serving in chip_smoke.py (prompts of 17,
 # 100, 256 and 511 tokens): the first step, a middle one and the last
 LENGTHS = ((18, 101, 257, 512), (34, 117, 273, 528), (49, 132, 288, 543))
 B, S, H, HK, D = 4, 2048, 32, 8, 128
 # Llama-3-8B's cold prefill chunks in chip_smoke.py's serving run
 CHUNKS = (32, 64, 112, 256, 512)
-# stamp rows read back: more than either kernel launches at these shapes
-MAX_CTAS = 1024
+# K5's (M, K, N): Llama-3-8B's k/v, gate/up, down and lm_head projections
+# at M = 4 decode slots, and the gate projection at a 512-row prefill chunk
+K5_SHAPES = ((4, 4096, 1024), (4, 4096, 14336), (4, 14336, 4096), (4, 4096, 128256),
+             (512, 4096, 14336))
+# stamp rows read back: more than any kernel launches at these shapes
+MAX_CTAS = 8192
 
 
 def _stamped_library(kernel):
-    name, module = SOURCES[kernel]
+    name, module, loader, entry = SOURCES[kernel]
     os.makedirs(build.BUILD_DIR, exist_ok=True)
     path = os.path.join(build.BUILD_DIR, f"lib{name}_stamps.so")
     cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-DFP8Q_STAMPS", "-o", path,
@@ -61,13 +74,13 @@ def _stamped_library(kernel):
     if done.returncode != 0:
         raise RuntimeError(f"nvcc failed:\n{done.stdout}{done.stderr}")
     lib = ctypes.CDLL(path)
-    fn = getattr(lib, "fp8q_decode_attention" if kernel == "K6" else "fp8q_fused_sdpa")
-    ref = module._lib()            # the port's own build: its argument types
+    fn = getattr(lib, entry)
+    ref = getattr(module, loader)()   # the port's own build: its argument types
     fn.argtypes, fn.restype = ref.argtypes, ref.restype
     lib.fp8q_read_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.fp8q_read_stamps.restype = ctypes.c_int
     lib.fp8q_stamp_slots.restype = ctypes.c_int
-    module._lib = lambda: fn       # the wrapper launches the stamped build
+    setattr(module, loader, lambda: fn)   # the wrapper launches the stamped build
     return lib
 
 
@@ -92,6 +105,18 @@ def _cases(kernel, dev):
     """(description, launch, check) per shape: ``check(out)`` is the plain
     version's verdict on one launch's output."""
     gen = torch.Generator(device=dev).manual_seed(5)
+    if kernel == "K5":
+        from ..ops.fastpath import pack_int4
+
+        for m, k, n in K5_SHAPES:
+            x = torch.randint(-128, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+            w4 = pack_int4(torch.randint(-8, 8, (k, n), generator=gen, device=dev,
+                                         dtype=torch.int8))
+            yield ({"m": m, "k": k, "n": n},
+                   lambda x=x, w4=w4, k=k: k5.int4_matmul(x, w4, k=k),
+                   lambda out, x=x, w4=w4, k=k: torch.equal(
+                       out, k5.int4_matmul_plain(x, w4, k=k)))
+        return
     if kernel == "K6":
         from ..numerics.codec import pack_exmy
 
