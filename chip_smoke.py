@@ -9,12 +9,14 @@ Phases, one line each (any failure exits non-zero; no phase is skipped):
    power limit as ``nvidia-smi`` reports them.
 2. build: compiles every CUDA source of the port with ``nvcc`` for sm_90a,
    one ``nvcc`` per source, all at once; counts the tensor-core instructions
-   in the SASS of each route of K2 and K4 and of K7 (route B and K7 must
-   have them).
+   in the SASS of each route of K2, K4 and K5 and of K7 (route B of K2/K4,
+   both routes of K5 and K7 must have them) and K3's instructions a product.
 3. kernels: the approximate-multiplier GEMM (K3) against its plain PyTorch
    version on the card, at the four ViT-B/16 layer shapes on a 64-row slice,
-   in the eight flag cases of the JAX package's Pallas tests and on every
-   single product of the E2M5 value space under s2nn2s; the bit-ops
+   in the eight flag cases of the JAX package's Pallas tests, on every
+   single product of the E2M5 value space under s2nn2s, and on every single
+   product (K = 1) of value space x value space in all eight cases across a
+   sweep of result biases (bit for bit); the bit-ops
    quantizer (K1) on random, zero, subnormal, +-maxval and clip-edge inputs;
    the fused quant GEMM (K2) and the packed-FP8 dequant GEMM (K4) in every
    switch combination at the four dense shapes on a 64-row slice, unaligned
@@ -29,7 +31,8 @@ Phases, one line each (any failure exits non-zero; no phase is skipped):
    version bit for bit over Llama-3-8B's 2048-slot slabs in bf16 and in
    uint8 codes, at lengths on its 64-key sub-chunk and 512-key block edges,
    and at an S off its key block; the int4 nibble GEMM (K5) equal to its plain version at
-   Llama-3-8B's decode and prefill shapes and an unaligned one, timed beside
+   Llama-3-8B's decode and prefill shapes, at 16 and 17 rows (its route
+   edge) and at unaligned shapes with odd K on both routes, timed beside
    ``torch._int_mm``. At the shapes of a batch-8 forward, in the configurations the main
    path launches (K1 at every size it sees, K2 on bf16 x, K4 on bf16 and on
    coded x), checks each GEMM kernel against its plain version again and
@@ -103,12 +106,13 @@ import torch
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and float32
 # outside the tensor cores. The float32 rate counts an FMA as two
-# operations, so the CUDA cores issue half as many instructions a second;
-# K3's per-product work is such instructions (integer, float, shared loads),
-# none of them a tensor-core instruction
+# operations, so the CUDA cores do half as many f32 adds a second
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-CUDA_CORE_INSTR_PER_S = F32_OPS_PER_S / 2
+F32_ADDS_PER_S = F32_OPS_PER_S / 2
+# shared memory serves 32 four-byte words a clock on each SM: K3's floor is
+# one table read a product (csrc/approx_matmul.cu)
+SHARED_WORDS_PER_SM_CLOCK = 32
 # dense bf16 tensor-core peak: the least time for a GEMM's 2MKN operations
 BF16_TC_OPS_PER_S = 989e12
 
@@ -237,11 +241,48 @@ def cuda_ms(fn, reps, head_start=HEAD_START_CYCLES):
     return start.elapsed_time(end) / reps
 
 
-def check_kernel_against_plain(k3, dev, instr_per_product):
+# K3 at K = 1 over value space x value space: operand biases and a sweep
+# of result biases that puts the products in every binade of the result
+# grid (below half its smallest step, subnormal, normal, its top binade and
+# above its max_norm)
+K3_SPACE_BIASES = ((5, 3), (2, 9))
+K3_SPACE_BIAS_R = tuple(range(-12, 30, 3))
+
+
+def check_k3_single_products(k3, dev):
+    """Every single product (K = 1) of the format's signed value space
+    against the weights' value space, in the eight flag cases and the bias
+    sweep: the kernel equal to its plain version bit for bit (a zero's sign
+    aside, which no sum that starts at +0 keeps)."""
+    from fp8_quantization_tpu_torch.numerics.codec import value_space
+
+    calls = 0
+    for i, case in enumerate(CASES):
+        flags = {**FLAGSHIP, **case}
+        ew, mw = flags["expo_width"], flags["mant_width"]
+        for ba, bb in K3_SPACE_BIASES:
+            va, vb = value_space(ew, mw, ba), value_space(ew, mw, bb)
+            a = torch.cat([va, -va[1:]]).reshape(-1, 1).to(dev)
+            b = torch.cat([vb, -vb[1:]]).reshape(1, -1).to(dev)
+            for br in K3_SPACE_BIAS_R:
+                ours = k3.approx_matmul(a, b, ba, bb, br, **flags) + 0.0
+                plain = k3.approx_matmul_plain(a, b, ba, bb, br, **flags) + 0.0
+                calls += 1
+                if not torch.equal(ours.view(torch.int32), plain.view(torch.int32)):
+                    bad = int((ours.view(torch.int32) != plain.view(torch.int32)).sum())
+                    raise SystemExit(f"K3 differs from its plain version on {bad} single "
+                                     f"products in case {case}, biases {ba}, {bb}, {br}")
+    phase("kernels", f"K3 value space x value space at K = 1, 8 flag cases, biases "
+                     f"{K3_SPACE_BIASES} x bias_r {K3_SPACE_BIAS_R[0]}..{K3_SPACE_BIAS_R[-1]}: "
+                     f"equal bit for bit in {calls} calls")
+
+
+def check_kernel_against_plain(k3, dev, sm_clock_hz):
     """Phase 3: returns (max_abs_err, per-forward ms / plain ms / bound ms).
-    The bound is the larger of the bytes over HBM bandwidth and the
-    products times ``instr_per_product`` (counted in the built kernel's SASS)
-    over the CUDA cores' instruction rate."""
+    The bound is the largest of the bytes over HBM bandwidth, the products
+    over the shared-memory words the SMs read a second at ``sm_clock_hz``
+    (one table read a product) and the products over the f32 add rate (one
+    add a product)."""
     from fp8_quantization_tpu_torch.numerics.approx_matmul import approx_products
     from fp8_quantization_tpu_torch.numerics.luts import get_error_table
 
@@ -309,27 +350,32 @@ def check_kernel_against_plain(k3, dev, instr_per_product):
     phase("kernels", f"K3 zero operand, bias +inf: all zero {ok}")
     if not ok:
         raise SystemExit("K3 gives nonzero products for a zero operand")
+    check_k3_single_products(k3, dev)
 
     # times at the shapes of one batch-8 forward
-    totals = {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
+    table_reads_per_s = (torch.cuda.get_device_properties(dev).multi_processor_count
+                         * SHARED_WORDS_PER_SM_CLOCK * sm_clock_hz)
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "adds_ms": 0.0}
     for name, m, k, n, count in layer_shapes(BATCH):
         a, b, bb = grid_operands(m, k, n, dev, seed=m + k + n)
         ms = cuda_ms(lambda: k3.approx_matmul(a, b, bias_a, bb, bias_r, **FLAGSHIP), 5)
         plain_ms = cuda_ms(
             lambda: k3.approx_matmul_plain(a, b, bias_a, bb, bias_r, **FLAGSHIP), 1)
-        nbytes = 4 * (m * k + k * n + m * n + n + 2 + 16 * 16)
-        ops = m * k * n * instr_per_product
-        bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / CUDA_CORE_INSTR_PER_S
-        bound_ms = max(bytes_ms, ops_ms)
+        nbytes = 4 * (m * k + k * n + m * n + n + 2)
+        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        ops_ms = 1e3 * m * k * n / table_reads_per_s
+        adds_ms = 1e3 * m * k * n / F32_ADDS_PER_S
+        bound_ms = max(bytes_ms, ops_ms, adds_ms)
         phase("kernels", f"K3 {name} {m}x{k}x{n} x{count}/forward: kernel {ms:.4f} ms, "
-                         f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                         f"({m * k * n / ms / 1e6:.4g} G products/s)")
+                         f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms (table reads; "
+                         f"f32 adds {adds_ms:.4f}) ({m * k * n / ms / 1e6:.4g} G products/s)")
         totals["ms"] += count * ms
         totals["plain_ms"] += count * plain_ms
         totals["bytes_ms"] += count * bytes_ms
         totals["ops_ms"] += count * ops_ms
-    totals["bound_ms"] = max(totals["bytes_ms"], totals["ops_ms"])
-    totals["bound_by"] = "operations" if totals["ops_ms"] >= totals["bytes_ms"] else "bytes"
+        totals["adds_ms"] += count * adds_ms
+    totals["bound_ms"] = max(totals["bytes_ms"], totals["ops_ms"], totals["adds_ms"])
+    totals["bound_by"] = "bytes" if totals["bytes_ms"] == totals["bound_ms"] else "operations"
     return worst, totals
 
 
@@ -1330,10 +1376,12 @@ def time_llama_attention(spec, dev, run, coded, worst):
 # for an integer GEMM's 2MKN operations
 INT8_TC_OPS_PER_S = 1979e12
 # K5 in phase 3: Llama-3-8B's decode projections (k/v, gate/up, down) and
-# lm_head at M = 4 slots, a 512-token prefill chunk, and a shape with odd K
-# and M, N off any tile
+# lm_head at M = 4 slots, a 512-token prefill chunk, both sides of the route
+# edge (M = 16 / 17), and shapes with odd K and M, N off any tile (the byte
+# loads of rows that are not 16-byte aligned) on both routes
 K5_SHAPES = ((4, 4096, 1024), (4, 4096, 14336), (4, 14336, 4096), (4, 4096, 128256),
-             (512, 4096, 14336), (9, 97, 136))
+             (512, 4096, 14336), (16, 4096, 4096), (17, 4096, 4096), (9, 97, 136),
+             (3, 4097, 1000), (40, 4097, 1000))
 
 
 def int4_operands(gen, m, k, n, dev):
@@ -1391,14 +1439,17 @@ def time_k5(dm, dev, gen, m, k, n, w=None):
 
 
 def check_k5(dm, dev):
-    """Phase 3: K5 equal to its plain version at Llama-3-8B's shapes and an
-    unaligned one, each timed beside its plain version, ``torch._int_mm``
-    and the bound."""
+    """Phase 3: K5 equal to its plain version at Llama-3-8B's shapes, the
+    route edge and unaligned ones, each timed beside its plain version,
+    ``torch._int_mm`` and the bound."""
+    from fp8_quantization_tpu_torch.ops.cuda import fused_matmul as fm
+
     gen = torch.Generator(device=dev).manual_seed(9)
     for m, k, n in K5_SHAPES:
         t = time_k5(dm, dev, gen, m, k, n)
         lib = f"{t['library_ms']:.4f}" if t["library_ms"] is not None else "n/a (K, N not 8-aligned)"
-        phase("kernels", f"K5 {m}x{k}x{n}: equal to plain (max|d| 0); kernel {t['ms']:.4f} ms, "
+        phase("kernels", f"K5 {m}x{k}x{n} route {fm.gemm_route(m)}: equal to plain (max|d| 0); "
+                         f"kernel {t['ms']:.4f} ms, "
                          f"plain {t['plain_ms']:.4f} ms, torch._int_mm {lib} ms, bound "
                          f"{max(t['bytes_ms'], t['ops_ms']):.4f} ms "
                          f"({2 * m * k * n / t['ms'] / 1e9:.4g} TOP/s)")
@@ -1412,20 +1463,31 @@ def time_llama_k5(spec, dev, run, worst):
     from fp8_quantization_tpu_torch.ops.cuda import dequant_matmul as dm
 
     gen = torch.Generator(device=dev).manual_seed(6)
-    rows = {}
+    chunks = {}
     for t in run["chunks"]:
-        rows[t] = rows.get(t, 0) + 1
-    rows[LLAMA_SLOTS] = rows.get(LLAMA_SLOTS, 0) + len(run["step_s"])
-    total, per_step = {}, {}
+        chunks[t] = chunks.get(t, 0) + 1
+    steps = len(run["step_s"])
+    rows = dict(chunks)
+    rows[LLAMA_SLOTS] = rows.get(LLAMA_SLOTS, 0) + steps
+    total, per_step, prefill = {}, {}, {}
     for name, k, n, per_forward in llama_dense_shapes(spec):
         _, w4, w8 = int4_operands(gen, 1, k, n, dev)
         for m, forwards in sorted(rows.items()):
             t = time_k5(dm, dev, gen, m, k, n, w=(w4, w8))
             _add(total, forwards * per_forward, **t)
+            if m in chunks:
+                _add(prefill, chunks[m] * per_forward, **t)
             if m == LLAMA_SLOTS:
                 _add(per_step, per_forward, **t)
         del w4, w8
         torch.cuda.empty_cache()
+    phase("kernels", f"K5 equal to plain at every (M, K, N) of the w4a8 run: M in "
+                     f"{sorted(rows)} x {len(llama_dense_shapes(spec))} projections")
+    pre = _finish(prefill)
+    phase("kernels", f"K5 over the run's admissions (chunks {sorted(chunks)}): kernel "
+                     f"{pre['ms']:.3f} ms, plain {pre['plain_ms']:.3f} ms, torch._int_mm "
+                     f"{pre['library_ms']:.3f} ms, bound {pre['bound_ms']:.3f} ms "
+                     f"({pre['bound_by']})")
     worst["K5"] = 0.0   # time_k5 stops the run at any difference
     step = _finish(per_step)
     phase("kernels", f"K5 per decode step (M={LLAMA_SLOTS}, {llama_dense_per_forward(spec)} "
@@ -1915,7 +1977,8 @@ def main() -> int:
     phase("build", f"all sources in {time.perf_counter() - t0:.1f} s")
     mix = sass_mix.instruction_mix(built["approx_matmul"]["path"])
     phase("build", f"K3 flagship loop: {mix['instructions_per_product']:.4g} instructions "
-                   f"per product, by class {mix['per_product_by_class']}")
+                   f"per product (staging included; a diagnostic, the bound counts one "
+                   f"table read a product), by class {mix['per_product_by_class']}")
     tc_mix = sass_mix.tensor_core_mix({n: built[n]["path"]
                                        for n in sass_mix.TENSOR_CORE_KERNELS})
     for name, funcs in tc_mix.items():
@@ -1928,9 +1991,14 @@ def main() -> int:
         raise SystemExit("route B of K2/K4 has no tensor-core instruction in its SASS")
     if not sass_mix.uses_tensor_cores(tc_mix, "sdpa_kernel"):
         raise SystemExit("K7 has no tensor-core instruction in its SASS")
+    if not sass_mix.uses_tensor_cores(tc_mix, "int4_"):
+        raise SystemExit("a route of K5 has no tensor-core instruction in its SASS")
 
     # 3. kernels against their plain versions
-    max_err, k3_times = check_kernel_against_plain(k3, dev, mix["instructions_per_product"])
+    sm_clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    max_err, k3_times = check_kernel_against_plain(k3, dev, 1e6 * sm_clock_mhz)
     gemm_err = check_gemms(fm, dm, dev)
     gemm_err["K1"] = check_k1(fm, dev)
     attention_err, k7_vit = check_attention(LLAMA3_8B, dev)

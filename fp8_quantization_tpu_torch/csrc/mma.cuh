@@ -1,7 +1,8 @@
 // Tensor-core and async-copy helpers shared by the route B GEMM of K2 and K4
-// (tile_gemm.cuh) and the fused SDPA (K7, attention.cu): cp.async 16-byte
-// copies with zero fill, ldmatrix (plain and transposed) from shared memory,
-// mma.sync m16n8k16 bf16 x bf16 -> f32, and two f32 packed to bf16x2.
+// (tile_gemm.cuh), the fused SDPA (K7, attention.cu) and the int4 GEMM (K5,
+// int4_matmul.cu): cp.async 16-byte copies with zero fill, ldmatrix (plain
+// and transposed) from shared memory, mma.sync m16n8k16 bf16 x bf16 -> f32
+// and m16n8k32 s8 x s8 -> s32, and two f32 packed to bf16x2.
 
 #pragma once
 
@@ -50,6 +51,16 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], 
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
       "{%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a (16 x 32 s8, row) * b (32 x 8 s8, col), exact in s32
+__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                       unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

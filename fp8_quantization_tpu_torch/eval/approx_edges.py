@@ -17,6 +17,10 @@ the exponent sum E = Ea + Eb of their operands (each operand's own binade,
 * ``rounds_to_zero``: u <= -(M + 3), below half the grid's smallest step;
 * ``zero_operand``: a or b is zero.
 
+It also counts the operands that are not on their own grid (a value that
+``quantize_exmy`` onto ExMy(bias) moves): the kernel sums such an
+operand's K-slice by the codec arithmetic instead of its table.
+
 The counts come from per-k histograms of the operands' exponents (their
 convolution over k), not from the (M, K, N) products themselves. Prints one
 JSON object with the counts and shares over the run's calls.
@@ -30,6 +34,7 @@ import json
 import torch
 
 from .. import cli
+from ..numerics.codec import quantize_exmy
 from ..numerics.rounding import to_int32
 from ..ops.cuda import approx_matmul as k3
 
@@ -82,11 +87,20 @@ def main(argv=None):
     calls = 0
     kernel = k3.approx_matmul
 
+    off_grid = {"a": 0, "b": 0, "a_values": 0, "b_values": 0}
+
     def counting(a, b, bias_a, bias_b, bias_r, **kw):
         nonlocal calls
         calls += 1
         for key, v in product_categories(a, b, bias_r, kw["mant_width"]).items():
             totals[key] += v
+        ew, mw = kw["expo_width"], kw["mant_width"]
+        bb = to_int32(bias_b, b.device).reshape(1, -1)
+        off_grid["a"] += int((quantize_exmy(a, ew, mw, to_int32(bias_a, a.device),
+                                            clip_of=False) != a).sum())
+        off_grid["b"] += int((quantize_exmy(b, ew, mw, bb, clip_of=False) != b).sum())
+        off_grid["a_values"] += a.numel()
+        off_grid["b_values"] += b.numel()
         return kernel(a, b, bias_a, bias_b, bias_r, **kw)
 
     counting.launches = 0
@@ -102,6 +116,7 @@ def main(argv=None):
         "counts": totals,
         "share": {key: v / products for key, v in totals.items()},
         "share_of_nonzero": {key: totals[key] / nonzero for key in CATEGORIES[:-1]},
+        "operands_off_grid": off_grid,
     }), flush=True)
 
 

@@ -42,8 +42,10 @@ PHASES = {
            "combine (CTA 0)", "epilogue"),
     "K7": ("setup", "tile landed", "q k^T and mask", "pass 1 max and sum",
            "pass 2 p and p @ v", "epilogue"),
-    "K5": ("setup", "x chunk staged (byte loads, two barriers)", "weight loads and __dp4a",
-           "partial sums in shared memory", "store or global atomic add"),
+    "K5": ("setup (route B: ring primed)",
+           "route A: every step, loads and mma; route B: stage landed, its barrier",
+           "route B: nibble expansion, its barrier", "route B: tensor-core mma",
+           "partial sums in shared memory", "store (split K: cluster combine)"),
 }
 # per kernel: its source, wrapper module, the module's library loader and
 # the C entry

@@ -247,7 +247,7 @@ def int4_matmul_plain(x_codes, w4, *, k: int):
 @functools.lru_cache(maxsize=None)
 def _int4_lib():
     fn = build.load("int4_matmul").fp8q_int4_matmul
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -259,7 +259,11 @@ def int4_matmul(x_codes, w4, *, k: int):
     x_codes: (M, K) int8 (``fastpath.quantize_acts_int8``); w4: (ceil(K/2), N)
     uint8 from ``fastpath.pack_int4`` (split-K halves). Returns (M, N) int32;
     the zero points and scales are the caller's (``quantized_matmul_int8``
-    with ``acc=``). ``int4_matmul.launches`` counts kernel launches.
+    with ``acc=``). One launch, equal to :func:`int4_matmul_plain` bit for
+    bit on either route: route A (weight streaming, K split across a
+    cluster) for M <= ``fused_matmul.ROUTE_A_MAX_M``, route B (row tiles)
+    above, both on the int8 tensor cores. ``int4_matmul.launches`` counts
+    kernel launches.
     """
     if x_codes.device.type == "cpu":
         return int4_matmul_plain(x_codes, w4, k=k)
@@ -274,7 +278,7 @@ def int4_matmul(x_codes, w4, *, k: int):
     x_codes, w4 = x_codes.contiguous(), w4.contiguous()
     with torch.cuda.device(dev):
         err = _int4_lib()(x_codes.data_ptr(), w4.data_ptr(), out.data_ptr(), m, n, k,
-                          _stream(dev))
+                          ROUTE_A_MAX_M, _stream(dev))
     if err != 0:
         raise RuntimeError(f"int4_matmul kernel launch failed: CUDA error {err}")
     int4_matmul.launches += 1

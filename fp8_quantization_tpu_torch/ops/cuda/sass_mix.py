@@ -1,5 +1,6 @@
 """Instruction mix of K3's main loop, and the tensor-core instructions of
-the GEMMs K2 and K4 and of the fused SDPA K7, read from the compiled SASS.
+the GEMMs K2, K4 and K5 and of the fused SDPA K7, read from the compiled
+SASS.
 
     python -m fp8_quantization_tpu_torch.ops.cuda.sass_mix
 
@@ -7,14 +8,18 @@ Builds ``csrc/approx_matmul.cu`` (as :mod:`.build` does), disassembles it
 with the toolkit's ``cuobjdump -sass``, takes the flagship instantiation
 (``with_approx`` and ``quant_btw_mult_accu`` on, no clip, no s2nn2s), finds
 its K-slice loop (the widest backward branch) and counts the instructions in
-it by class. One pass of that loop does ``BK * RM * RN`` products per
-thread, so the count per product, staging included, is the loop's length
-over that; it feeds the kernel's operation bound. Prints one JSON object.
-:func:`tensor_core_mix` counts the tensor-core instructions (``HMMA`` of
-``mma.sync``, ``HGMMA`` of ``wgmma``) in each route of K2 and K4 and in the
-fused SDPA K7: route B (``mma_gemm_kernel``) and K7 (``sdpa_kernel``) must
-have them, route A (``stream_gemm_kernel``) sums on the CUDA cores. Needs the CUDA toolkit, so it runs on the GPU machine
-only.
+it by class, leaving out any loop nested in it (the per-product path of
+off-grid slices, which the main path never takes). One pass of that loop
+does ``BK * RM * RN`` products per thread, so the count per product,
+staging included, is the loop's length over that: a diagnostic beside the
+kernel's bound, which counts one table read a product. Prints one JSON
+object. :func:`tensor_core_mix` counts the tensor-core instructions
+(``HMMA`` of bf16 ``mma.sync``, ``IMMA`` of its int8 form, ``HGMMA`` of
+``wgmma``) in each route of K2, K4 and K5 and in the fused SDPA K7: route B
+of K2/K4 (``mma_gemm_kernel``), both routes of K5 (``int4_stream_kernel``,
+``int4_mma_kernel``) and K7 (``sdpa_kernel``) must have them, route A of
+K2/K4 (``stream_gemm_kernel``) sums on the CUDA cores. Needs the CUDA
+toolkit, so it runs on the GPU machine only.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from . import build
 
 # the kernel's tile: BK K-steps of an RM x RN block of products per thread
 # and pass (csrc/approx_matmul.cu)
-PRODUCTS_PER_PASS = 16 * 4 * 4
+PRODUCTS_PER_PASS = 8 * 4 * 4
 FLAGSHIP = "approx_matmul_kernelILb1ELb1ELb0ELb0E"
 
 _LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?);")
@@ -70,7 +75,8 @@ def _functions(sass: str):
 
 
 def loop_mix(instrs):
-    """Instructions of the widest backward branch's loop, counted by class."""
+    """Instructions of the widest backward branch's loop, counted by class,
+    without those of the loops nested in it."""
     loops = []
     for addr, op, text in instrs:
         target = re.search(r"0x([0-9a-f]+)", text) if op == "BRA" else None
@@ -79,7 +85,9 @@ def loop_mix(instrs):
     if not loops:
         raise RuntimeError("no backward branch: the K-slice loop was not found")
     lo, hi = max(loops, key=lambda span: span[1] - span[0])
-    body = [op for addr, op, _ in instrs if lo <= addr <= hi]
+    inner = [(a, b) for a, b in loops if lo <= a and b <= hi and (a, b) != (lo, hi)]
+    body = [op for addr, op, _ in instrs
+            if lo <= addr <= hi and not any(a <= addr <= b for a, b in inner)]
     return len(body), collections.Counter(_class(op) for op in body)
 
 
@@ -107,13 +115,13 @@ def _sass(path: str) -> str:
                           check=True).stdout
 
 
-TENSOR_CORE_OPS = ("HMMA", "HGMMA")
+TENSOR_CORE_OPS = ("HMMA", "IMMA", "HGMMA")
 # the sources whose tensor-core instructions are counted, and the name every
 # counted kernel function of each holds: both routes of K2 and K4 (route A
-# ``stream_gemm_kernel``, route B ``mma_gemm_kernel``) and K7's
+# ``stream_gemm_kernel``, route B ``mma_gemm_kernel``), both of K5 and K7's
 # ``sdpa_kernel``
 TENSOR_CORE_KERNELS = {"fused_matmul": "gemm_kernel", "dequant_matmul": "gemm_kernel",
-                       "attention": "sdpa_kernel"}
+                       "int4_matmul": "int4_", "attention": "sdpa_kernel"}
 
 
 def tensor_core_mix(paths: dict | None = None) -> dict:
@@ -131,8 +139,8 @@ def tensor_core_mix(paths: dict | None = None) -> dict:
 
 def uses_tensor_cores(mix: dict, kernel: str) -> bool:
     """Every counted function whose name holds ``kernel`` (``"mma_gemm"``:
-    route B of K2 and K4; ``"sdpa_kernel"``: K7) has tensor-core
-    instructions."""
+    route B of K2 and K4; ``"int4_"``: both routes of K5; ``"sdpa_kernel"``:
+    K7) has tensor-core instructions."""
     counts = [c for funcs in mix.values() for fn, c in funcs.items() if kernel in fn]
     return bool(counts) and min(counts) > 0
 

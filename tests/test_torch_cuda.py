@@ -25,8 +25,13 @@ plain output or be one step of the result grid away where the plain sum is
 within that tolerance of a rounding midpoint, with at least 99% equal
 (``fused_matmul.within_requant_step``).
 
+K3 also equals its plain version bit for bit on every single product
+(K = 1) of the value spaces across the result biases: its table path
+(``approx_matmul.table_products``) is exact per product, and only the
+summation order over K separates it from the plain sum.
+
 K5's integer sums are exact in any order: it must equal its plain version
-bit for bit.
+bit for bit on both routes and at the route edge.
 
 K7 runs ``q k^T`` and ``p v`` on the tensor cores, which sum in their own
 order: it is held to ``attention.within_sdpa_contract`` (a bound derived from
@@ -170,6 +175,32 @@ def test_kernel_s2nn2s_on_every_single_product(cuda):
         ours, plain = _kernel_and_plain(cuda, a, b, 2, 3, br, expo_width=2, mant_width=5,
                                         with_comp=True, with_s2nn2s_opt=True)
         np.testing.assert_array_equal(ours, plain)
+
+
+# operand biases and a sweep of result biases that lands the single
+# products in every binade of the result grid (as tests/test_torch_approx_table.py)
+SPACE_BIASES = ((5, 3), (2, 9))
+SPACE_BIAS_R = tuple(range(-12, 30, 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES, ids=case_id)
+def test_kernel_single_products_over_value_space(cuda, case):
+    """Every single product (K = 1) of value space x value space, in each
+    flag case and across the result biases: the kernel's table path equal to
+    its plain version bit for bit (a zero's sign aside, which no sum that
+    starts at +0 keeps)."""
+    flags = {"with_approx": True, **case}
+    ew, mw = case["expo_width"], case["mant_width"]
+    for ba, bb in SPACE_BIASES:
+        va, vb = value_space(ew, mw, ba), value_space(ew, mw, bb)
+        a = torch.cat([va, -va[1:]]).reshape(-1, 1).numpy()
+        b = torch.cat([vb, -vb[1:]]).reshape(1, -1).numpy()
+        for br in SPACE_BIAS_R:
+            ours, plain = _kernel_and_plain(cuda, a, b, ba, bb, br, **flags)
+            np.testing.assert_array_equal((ours + 0.0).view(np.int32),
+                                          (plain + 0.0).view(np.int32),
+                                          err_msg=f"biases {ba} {bb} {br}")
 
 
 def k1_inputs(rng, maxval, shape=(33, 67)):
@@ -354,9 +385,15 @@ def test_gemm_kernels_reject_what_they_do_not_take(cuda):
 
 
 # (M, K, N): Llama-3-8B's decode projections (k/v, gate/up, down) and a
-# prefill chunk, odd K with M and N off any tile, a single column
+# prefill chunk, odd K with M and N off any tile, a single column; both
+# sides of the route edge (M = 16 / 17), every admission chunk of the
+# serving run in chip_smoke.py (17, 100, 256, 511 and 64 tokens padded to
+# 32, 112, 256, 512 and 64 rows), and odd K at Llama widths on both routes
 INT4_SHAPES = [(4, 4096, 1024), (4, 4096, 14336), (4, 14336, 4096), (512, 4096, 14336),
-               (9, 97, 136), (33, 255, 7), (1, 1, 1)]
+               (9, 97, 136), (33, 255, 7), (1, 1, 1),
+               (16, 4096, 4096), (17, 4096, 4096), (32, 4096, 1024), (64, 4096, 1024),
+               (112, 4096, 1024), (256, 14336, 1024), (512, 4096, 1024),
+               (3, 4097, 1000), (40, 4097, 1000)]
 
 
 @pytest.mark.cuda
