@@ -65,8 +65,8 @@ constexpr int RM = BM / WARPS;    // rows per thread
 constexpr int RN = BN / 32;       // columns per thread
 constexpr int MAX_MW = 5;         // 2^M <= 32
 constexpr int S2_FLAG = 1 << 8;   // packed beside the mantissa field
-// the table path's bounds (ops/cuda/approx_matmul.py FAST_EXP_LIMIT,
-// FAST_BIAS_LIMIT): |ea + eb| <= 120 keeps 2^(ea+eb) a normal f32
+// the table path's bounds: |ea + eb| <= 120 keeps 2^(ea+eb) a normal f32,
+// and the exponent sums stay far from int overflow
 constexpr int EXP_LIMIT = 60;
 constexpr int BIAS_LIMIT = 64;
 

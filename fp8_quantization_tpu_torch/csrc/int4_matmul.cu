@@ -22,15 +22,15 @@
 // which need many 16-byte loads in flight on every SM. One CTA of 4 warps
 // owns 128 columns and a range of K; the warps take its 32-row steps in
 // turn, each loading a step's weights (16-byte loads straight into
-// registers: on this card cp.async copies of the same pattern stream at
-// about 60% of the rate) and the x words it needs while it multiplies the
-// step before, with no barrier in the loop. It transposes the weights in
+// registers: cp.async rings of the same pattern stream at about 60% of
+// their rate on an H100, eval/stream_read.py) and the x words it needs
+// while it multiplies the step before, with no barrier in the loop. It transposes the weights in
 // registers into the A operand (16 columns by 32 k) to multiply x^T as the
 // B operand (8 rows of x an mma). The warps' sums meet in shared memory,
 // and K is split across a thread-block cluster of up to 8 CTAs so that the
-// grid fills the card in one wave; the CTAs of a cluster add their partial
-// sums through distributed shared memory, each storing a share of the
-// tile: no memset and no global atomics.
+// grid fills the card in one wave; the CTAs of a cluster add their sums
+// into CTA 0's through distributed shared memory (one cluster barrier) and
+// CTA 0 stores the tile: no memset and no global atomics.
 //
 // Route B (prefill, M > 16): a CTA of 4 warps owns a 32- or 64-row by
 // 128-column tile and walks K in stages of 64 packed rows through a 3-stage
@@ -73,7 +73,7 @@ struct Int4Args {
   int* out;                 // (M, N)
   int M, N, K, K2;
   int rows_per_split;       // packed rows per CTA along K, a multiple of 64 (route B)
-                            // or 128 (route A)
+                            // or 32 (route A)
   int splits;               // CTAs of a cluster along K (grid z)
 };
 
@@ -109,32 +109,44 @@ __device__ __forceinline__ uint4 load16_bytes(const unsigned char* row, int n0, 
   return make_uint4(v[0], v[1], v[2], v[3]);
 }
 
-// Split-K across a cluster: every CTA has its partial sums of the tile in
-// red (rows x cols int32); each CTA adds a share of the tile's elements
-// over the cluster's CTAs in rank order and stores it.
-__device__ void combine_and_store(const Int4Args& a, int* red, int m0, int rows, int c0,
-                                  int cols) {
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();
-  const int n = rows * cols;
-  const int rank = (int)cluster.block_rank();
-  const int share = (n + a.splits - 1) / a.splits;
-  const int end = min(n, (rank + 1) * share);
-  for (int i = rank * share + threadIdx.x; i < end; i += THREADS) {
-    const int m = i / cols, c = i % cols;
-    if (m0 + m >= a.M || c0 + c >= a.N) continue;
-    int sum = 0;
-    for (int r = 0; r < a.splits; ++r) sum += cluster.map_shared_rank(red, r)[i];
-    a.out[(size_t)(m0 + m) * a.N + c0 + c] = sum;
-  }
-  // every CTA keeps its shared memory until the others have read it
-  cluster.sync();
-}
-
 // ---------------------------------------------------------------- route A
 
-// Route A's dynamic shared memory: the partial sums, M x COLS int32
-__host__ __device__ inline size_t a_smem(int M) { return (size_t)M * COLS * 4; }
+// Route A's split K (grid z, a cluster): CTA 0's sums (rows x COLS int32)
+// start at zero, released to the cluster at the kernel's start (the
+// barrier's first phase, long complete when the adds come); every CTA adds
+// its partial sums into them through distributed shared memory, and after
+// the barrier's second phase CTA 0 stores the tile. One barrier, at most
+// 16 x 128 adds a CTA; route B's tiles (up to 64 x 128) pull instead
+// (combine_and_store): adding them into one CTA took up to 2.8x as long
+// (17 x 4096 x 4096 on an H100).
+__device__ __forceinline__ void cluster_begin(int* sums, int n) {
+  for (int i = threadIdx.x; i < n; i += THREADS) sums[i] = 0;
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+
+// CTA 0's sums, once every CTA has zeroed its own
+__device__ __forceinline__ int* cluster_sums0(int* sums) {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  return cg::this_cluster().map_shared_rank(sums, 0);
+}
+
+__device__ __forceinline__ void cluster_end(const Int4Args& a, const int* sums, int m0,
+                                            int rows, int c0) {
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  if (cluster.block_rank() != 0) return;
+  for (int i = threadIdx.x; i < rows * COLS; i += THREADS) {
+    const int m = i / COLS, c = i % COLS;
+    if (m0 + m < a.M && c0 + c < a.N) a.out[(size_t)(m0 + m) * a.N + c0 + c] = sums[i];
+  }
+}
+
+
+// Route A's dynamic shared memory: each warp's sums (WARPS x M x COLS
+// int32), then the cluster's (M x COLS)
+__host__ __device__ inline size_t a_smem(int M) { return (size_t)(WARPS + 1) * M * COLS * 4; }
+
+
 
 // One step of a lane's operands: the weight bytes of rows 4t..4t+3 and
 // 16+4t..16+4t+3 at its 16 columns, and per 8 rows of x (row 8h + g) the
@@ -219,10 +231,12 @@ __global__ void __launch_bounds__(THREADS, A_MIN_CTAS_PER_SM) int4_stream_kernel
   const int R = a.rows_per_split;
   const int r_begin = blockIdx.z * R;
   const int r_end = min(a.K2, r_begin + R);
-  int* red = reinterpret_cast<int*>(smem);
+  const int tile = a.M * COLS;
+  int* part = reinterpret_cast<int*>(smem);   // [warp][m][column]
+  int* sums = part + WARPS * tile;            // the cluster's, in CTA 0
   STAMP_DECL
 
-  for (int i = tid; i < a.M * COLS; i += THREADS) red[i] = 0;
+  if (a.splits > 1) cluster_begin(sums, tile);
 
   // this warp's steps: w, w + WARPS, ... of the CTA's range; lane (g, t)
   // reads columns c0 + 16g .. + 15
@@ -254,7 +268,7 @@ __global__ void __launch_bounds__(THREADS, A_MIN_CTAS_PER_SM) int4_stream_kernel
 
   // the warps' sums meet in shared memory: acc[h][j] e = 0, 1 at column
   // 16g + j, e = 2, 3 at 16g + 8 + j; rows 8h + 2t + (e & 1)
-  __syncthreads();   // red is zeroed
+  int* mine_part = part + warp * tile;
 #pragma unroll
   for (int h = 0; h < H; ++h)
 #pragma unroll
@@ -262,24 +276,53 @@ __global__ void __launch_bounds__(THREADS, A_MIN_CTAS_PER_SM) int4_stream_kernel
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int m = 8 * h + 2 * t + (e & 1);
-        if (m < a.M && acc[h][j][e] != 0)
-          atomicAdd(&red[m * COLS + 16 * g + j + (e >> 1) * 8], acc[h][j][e] >> 4);
+        if (m < a.M) mine_part[m * COLS + 16 * g + j + (e >> 1) * 8] = acc[h][j][e] >> 4;
       }
+  __syncthreads();
   STAMP(4);
+  auto cta_sum = [&](int i) {
+    int v = 0;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) v += part[w * tile + i];
+    return v;
+  };
   if (a.splits == 1) {
-    __syncthreads();
-    for (int i = tid; i < a.M * COLS; i += THREADS) {
+    for (int i = tid; i < tile; i += THREADS) {
       const int m = i / COLS, c = i % COLS;
-      if (c0 + c < a.N) a.out[(size_t)m * a.N + c0 + c] = red[i];
+      if (c0 + c < a.N) a.out[(size_t)m * a.N + c0 + c] = cta_sum(i);
     }
   } else {
-    combine_and_store(a, red, 0, a.M, c0, COLS);
+    int* sums0 = cluster_sums0(sums);
+    for (int i = tid; i < tile; i += THREADS) atomicAdd(sums0 + i, cta_sum(i));
+    cluster_end(a, sums, 0, a.M, c0);
   }
   STAMP(5);
   STAMP_STORE((blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x);
 }
 
 // ---------------------------------------------------------------- route B
+
+// Route B's split K: every CTA has its partial sums of the tile in red
+// (rows x COLS int32); after a cluster barrier each CTA adds a share of
+// the tile's elements over the cluster's CTAs in rank order and stores it,
+// and a second barrier keeps every CTA's shared memory until the others
+// have read it.
+__device__ void combine_and_store(const Int4Args& a, int* red, int m0, int rows, int c0) {
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int n = rows * COLS;
+  const int rank = (int)cluster.block_rank();
+  const int share = (n + a.splits - 1) / a.splits;
+  const int end = min(n, (rank + 1) * share);
+  for (int i = rank * share + threadIdx.x; i < end; i += THREADS) {
+    const int m = i / COLS, c = i % COLS;
+    if (m0 + m >= a.M || c0 + c >= a.N) continue;
+    int sum = 0;
+    for (int r = 0; r < a.splits; ++r) sum += cluster.map_shared_rank(red, r)[i];
+    a.out[(size_t)(m0 + m) * a.N + c0 + c] = sum;
+  }
+  cluster.sync();
+}
 
 // Route B's dynamic shared memory: [x ring: B_STAGES x BM x 128]
 // [w ring: B_STAGES x 64 x 128][s8 tile: COLS x 128]; the split-K partials
@@ -451,7 +494,7 @@ __global__ void __launch_bounds__(THREADS) int4_mma_kernel(Int4Args a) {
           red[m * COLS + n] = acc[i][j][e] >> 4;
         }
     STAMP(4);
-    combine_and_store(a, red, m0, BM, c0, COLS);
+    combine_and_store(a, red, m0, BM, c0);
     STAMP(5);
   }
   STAMP_STORE((blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x);
@@ -517,8 +560,9 @@ int launch_routes(Int4Args a, int route_a_max_m, cudaStream_t stream) {
   if (err != 0) return err;
   const int tiles_n = (a.N + COLS - 1) / COLS;
   if (a.M <= route_a_max_m) {
-    // one wave of at most three CTAs an SM, each a step for every warp
-    split_k(a, tiles_n, 3 * sms, 4 * STEP, 1, true);
+    // one wave of at most three CTAs an SM, each at least a step for every
+    // warp; whole steps, so that the CTAs of a cluster end close together
+    split_k(a, tiles_n, 3 * sms, STEP, WARPS, true);
     const dim3 grid(tiles_n, 1, a.splits);
     const size_t smem = a_smem(a.M);
     if (a.M > 8) {

@@ -72,11 +72,6 @@ def approx_matmul_plain(a, b, bias_a, bias_b, bias_r, *, expo_width: int,
 # golden_clip_of clamps that at +-max_norm of the result grid instead of
 # taking a table of its own.
 SCAN_U = range(-40, 24)
-# an operand takes the table only with its binade and every bias in these
-# bounds, so 2^(ea + eb) is a normal f32 and u fits the int arithmetic;
-# other operands (and off-grid values) take the kernel's per-product path
-FAST_EXP_LIMIT = 60
-FAST_BIAS_LIMIT = 64
 
 
 class SignificandTable(NamedTuple):
@@ -160,8 +155,9 @@ def table_products(a, b, bias_a, bias_b, bias_r, *, expo_width: int, mant_width:
     from :func:`significand_table`: one table read at (ia, ib, slot(u)),
     times the power of two 2^(ea + eb) with the product's sign, clamped at
     +-max_norm of the result grid under ``golden_clip_of``. Holds for
-    operands on their grids with binades and biases inside the fast bounds
-    (``FAST_EXP_LIMIT``, ``FAST_BIAS_LIMIT``); ``bias_r`` is a scalar."""
+    operands on their grids with binades and biases inside the kernel's
+    bounds (``EXP_LIMIT``, ``BIAS_LIMIT`` in ``csrc/approx_matmul.cu``,
+    which keep 2^(ea + eb) a normal f32); ``bias_r`` is a scalar."""
     t = significand_table(expo_width, mant_width, with_comp, dnsmp_factor, with_approx,
                           with_s2nn2s_opt, quant_btw_mult_accu)
     a = torch.as_tensor(a).to(torch.float32)
@@ -196,7 +192,7 @@ def _device_table(expo_width, mant_width, with_comp, dnsmp_factor, with_approx,
     """The kernel's table on ``device``: the significand table with its slot
     axis padded to an odd stride (so a warp's reads of one slot spread over
     the banks), then the LUT times 2^-M (the per-product path's). Returns
-    (tensor, slots, u_lo, slot stride)."""
+    (tensor, slots, u_lo); the kernel derives the stride, ``slots | 1``."""
     t = significand_table(expo_width, mant_width, with_comp, dnsmp_factor, with_approx,
                           with_s2nn2s_opt, quant_btw_mult_accu)
     stride = t.slots | 1
@@ -204,7 +200,7 @@ def _device_table(expo_width, mant_width, with_comp, dnsmp_factor, with_approx,
     lut = torch.as_tensor(get_error_table(expo_width, mant_width, with_comp, dnsmp_factor),
                           dtype=torch.float32) * 2.0 ** -mant_width
     flat = torch.cat([values.reshape(-1), lut.reshape(-1)])
-    return flat.to(device).contiguous(), t.slots, t.u_lo, stride
+    return flat.to(device).contiguous(), t.slots, t.u_lo
 
 
 def _scalar_i32(v, device):
@@ -253,7 +249,7 @@ def approx_matmul(a, b, bias_a, bias_b, bias_r, *, expo_width: int,
     bias_b = bias_b.expand(n).contiguous()
     bias_a_t = _scalar_i32(bias_a, dev)
     bias_r_t = _scalar_i32(bias_r, dev)
-    table, slots, u_lo, _ = _device_table(expo_width, mant_width, with_comp, dnsmp_factor,
+    table, slots, u_lo = _device_table(expo_width, mant_width, with_comp, dnsmp_factor,
                                           with_approx, with_s2nn2s_opt, quant_btw_mult_accu,
                                           dev)
     launch = _lib()
