@@ -33,7 +33,10 @@ Phases, one line each (any failure exits non-zero; no phase is skipped):
    and at an S off its key block; the int4 nibble GEMM (K5) equal to its plain version at
    Llama-3-8B's decode and prefill shapes, at 16 and 17 rows (its route
    edge) and at unaligned shapes with odd K on both routes, timed beside
-   ``torch._int_mm``. At the shapes of a batch-8 forward, in the configurations the main
+   ``torch._int_mm``; K3 at every distinct (K, N) of MobileNetV2's and
+   ResNet-18's ungrouped products (the stems' K = 27 and 147, N = 16..1280,
+   K up to 4608) on a 64-row slice within its sum contract, then timed at
+   every product of a batch-16 forward beside its bound. At the shapes of a batch-8 forward, in the configurations the main
    path launches (K1 at every size it sees, K2 on bf16 x, K4 on bf16 and on
    coded x), checks each GEMM kernel against its plain version again and
    times it, its plain version and (for the GEMMs) cuBLAS, beside the card's
@@ -44,6 +47,13 @@ Phases, one line each (any failure exits non-zero; no phase is skipped):
    reference's published flag set, which launches none; and with the
    published flags in the serving modes ``--fast-mode`` (K1, K2),
    ``--fast-mode --packed-weights`` and ``... --chained-acts`` (K1, K4).
+   Then ``validate-quantized`` on the CNNs at full width, batch 16:
+   ``mobilenet_v2_quantized`` published, approx (K3 on the ungrouped convs
+   and the classifier, the oracle on the depthwise ones), ``--fast-mode``
+   (K1, K2) and ``--fast-mode --packed-weights`` (K1, K4);
+   ``resnet18_quantized`` published and approx; ``resnet50_quantized``
+   published and ``--fast-mode``; each run's launches and oracle calls
+   equal to the counts its shapes imply (``cnn_expected``).
    Then ``ContinuousBatcher`` serving Llama-3-8B at full width (32 layers,
    seeded random weights, calibrated as ``scripts/bench_llama.py`` does) with
    ``fused_sdpa=True``: 4 slots of 2048, greedy, prompts of 17, 100, 256 and
@@ -84,7 +94,10 @@ Phases, one line each (any failure exits non-zero; no phase is skipped):
    and tokens through K5 and K6 equal to the plain run's, max |d| 0; through
    every kernel, each K7 call within its contract), and in
    ``uniform_qc(8)`` under PACKED and CHAINED (bit-equal prefill and
-   decode-step logits).
+   decode-step logits); full-width MobileNetV2 at batch 1, approx FIXED
+   through K3 and its plain version (the same logits, exact sums) and FAST
+   (every K2 call to its contract, every K1 call equal; same top-1,
+   relative RMS within ``RMS_LIMIT``).
 
 Before the last line it prints one JSON object with each kernel's launches,
 error, times and bound; the last line is
@@ -1939,6 +1952,312 @@ def run_llama_w4a8(dev, counters):
     return run
 
 
+# ---------------------------------------------------------------------------
+# The CNN slice: MobileNetV2 (1.0, 224) and ResNet-18/50 under
+# validate-quantized at full width, batch 16 (scripts/image_net.sh's default)
+CNN_BATCH = 16
+CNN_SIZE = 224
+# the (t, c, n, s) table of MobileNetV2 (fp8_quantization_tpu_torch/models/
+# mobilenet_v2.py) and ResNet's (kind, blocks per stage)
+MOBILENET_SETTING = ((1, 16, 1, 1), (6, 24, 2, 2), (6, 32, 3, 2), (6, 64, 4, 2),
+                     (6, 96, 3, 1), (6, 160, 3, 2), (6, 320, 1, 1))
+RESNET_BLOCKS = {18: ("basic", (2, 2, 2, 2)), 50: ("bottleneck", (3, 4, 6, 3))}
+# validate-quantized's forwards in a run: the init forward of a zeros image,
+# one calibration batch and two eval batches
+CNN_EVALS = 2
+
+
+def _conv_out(hw, k, stride, pad):
+    return (hw + 2 * pad - k) // stride + 1
+
+
+def cnn_products(arch, batch, size=CNN_SIZE):
+    """Every product of one forward, read off the architecture's table:
+    ``(name, groups, M, K, N)`` with M the im2col rows at ``batch``. The
+    ungrouped ones (groups 1) and the classifier are K3's under the approx
+    run method; the grouped ones go to the oracle, one call each."""
+    out = []
+    if arch == "mobilenet_v2_quantized":
+        hw, in_ch = _conv_out(size, 3, 2, 1), 32
+        out.append(("stem 3x3", 1, batch * hw * hw, 27, 32))
+        for t, c, n, s in MOBILENET_SETTING:
+            for i in range(n):
+                stride, hidden = (s if i == 0 else 1), in_ch * t
+                if t != 1:
+                    out.append(("expand 1x1", 1, batch * hw * hw, in_ch, hidden))
+                hw = _conv_out(hw, 3, stride, 1)
+                out.append(("depthwise 3x3", hidden, batch * hw * hw, 9, 1))
+                out.append(("project 1x1", 1, batch * hw * hw, hidden, c))
+                in_ch = c
+        out.append(("last 1x1", 1, batch * hw * hw, in_ch, 1280))
+        out.append(("classifier", 1, batch, 1280, 1000))
+        return out
+    kind, reps = RESNET_BLOCKS[int(arch[6:8])]
+    expansion = 1 if kind == "basic" else 4
+    hw = _conv_out(size, 7, 2, 3)
+    out.append(("stem 7x7", 1, batch * hw * hw, 147, 64))
+    hw, in_ch = _conv_out(hw, 3, 2, 1), 64
+    for li, (width, n) in enumerate(zip((64, 128, 256, 512), reps)):
+        for bi in range(n):
+            stride = (1 if li == 0 else 2) if bi == 0 else 1
+            out_ch, hw_out = width * expansion, _conv_out(hw, 3, stride, 1)
+            if stride != 1 or in_ch != out_ch:
+                out.append(("downsample 1x1", 1, batch * hw_out * hw_out, in_ch, out_ch))
+            if kind == "basic":
+                out.append(("3x3", 1, batch * hw_out * hw_out, 9 * in_ch, width))
+                out.append(("3x3", 1, batch * hw_out * hw_out, 9 * width, width))
+            else:
+                out.append(("1x1", 1, batch * hw * hw, in_ch, width))
+                out.append(("3x3", 1, batch * hw_out * hw_out, 9 * width, width))
+                out.append(("1x1", 1, batch * hw_out * hw_out, width, out_ch))
+            hw, in_ch = hw_out, out_ch
+    out.append(("fc", 1, batch, in_ch, 1000))
+    return out
+
+
+def cnn_per_forward(arch):
+    """Launches and oracle calls of one forward. K3 (approx) and the oracle:
+    one per ungrouped and grouped product. K1 (``--fast-mode``): one per
+    per-tensor act or res site, that is, two per conv and for the
+    classifier (its input and its result), one per residual site (a block
+    that keeps its shape; ResNet's last block hands its site to the pool)
+    and one for the pool's output (ResNet's second, tied call is
+    ``FIXED``). K2 / K4: the classifier."""
+    products = cnn_products(arch, 1)
+    convs = sum(1 for p in products if p[0] not in ("classifier", "fc"))
+    if arch == "mobilenet_v2_quantized":
+        in_ch, residual = 32, 0
+        for t, c, n, s in MOBILENET_SETTING:
+            residual += sum(1 for i in range(n) if (s if i == 0 else 1) == 1
+                            and (in_ch if i == 0 else c) == c)
+            in_ch = c
+    else:
+        residual = sum(RESNET_BLOCKS[int(arch[6:8])][1]) - 1
+    return {"K3": sum(1 for p in products if p[1] == 1),
+            "oracle": sum(1 for p in products if p[1] > 1),
+            "K1": 2 * convs + 2 + residual + 1, "dense": 1}
+
+
+def cnn_expected(arch, mode):
+    """Each kernel's launches (and the oracle's calls) in one
+    validate-quantized run: approx runs K3 and the oracle in all four
+    forwards; ``--fast-mode`` K1 and K2 in the two eval forwards;
+    ``--packed-weights`` also in the weight-cache forward (a fast one), and
+    K4 in the eval forwards; the published flags launch nothing."""
+    per = cnn_per_forward(arch)
+    want = {name: 0 for name in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "oracle")}
+    if mode == "approx":
+        want["K3"], want["oracle"] = per["K3"] * (2 + CNN_EVALS), per["oracle"] * (2 + CNN_EVALS)
+    elif mode == "fast":
+        want["K1"], want["K2"] = per["K1"] * CNN_EVALS, per["dense"] * CNN_EVALS
+    elif mode == "packed":
+        want["K1"], want["K2"] = per["K1"] * (1 + CNN_EVALS), per["dense"]
+        want["K4"] = per["dense"] * CNN_EVALS
+    return want
+
+
+def cnn_flags(arch, mode):
+    """``PUBLISHED_FLAGS`` on a CNN at batch 16, in one of the four ways."""
+    flags = list(PUBLISHED_FLAGS)
+    flags[flags.index("--architecture") + 1] = arch + ("_approx" if mode == "approx" else "")
+    flags[flags.index("--batch-size") + 1] = str(CNN_BATCH)
+    if mode == "approx":
+        flags[flags.index("--no-approx_flag")] = "--approx_flag"
+        flags += ["--withComp", "--with_approx"]
+    return flags + {"published": [], "approx": [], "fast": ["--fast-mode"],
+                    "packed": ["--fast-mode", "--packed-weights"]}[mode]
+
+
+CNN_RUNS = ([("mobilenet_v2_quantized", m) for m in ("published", "approx", "fast", "packed")]
+            + [("resnet18_quantized", "published"), ("resnet18_quantized", "approx"),
+               ("resnet50_quantized", "published"), ("resnet50_quantized", "fast")])
+
+
+@contextlib.contextmanager
+def counted_oracle(record):
+    """Counts the calls of the grouped convs' oracle
+    (``layers.approx_matmul_oracle``) in ``record["oracle"]``."""
+    from fp8_quantization_tpu_torch.ops import layers
+
+    oracle = layers.approx_matmul_oracle
+    record["oracle"] = 0
+
+    def call(*args, **kw):
+        record["oracle"] += 1
+        return oracle(*args, **kw)
+
+    layers.approx_matmul_oracle = call
+    try:
+        yield record
+    finally:
+        layers.approx_matmul_oracle = oracle
+
+
+def run_cnn(cli, counters, arch, mode):
+    """One CNN ``validate-quantized`` run with every count zeroed just
+    before it, held to :func:`cnn_expected`. Returns (out, ms/img, counts)."""
+    zero_counts(counters)
+    with counted_oracle({}) as oracle:
+        out, ms = run_cli(cli, cnn_flags(arch, mode))
+    counts = {**read_counts(counters), **oracle}
+    want = cnn_expected(arch, mode)
+    phase("main", f"{arch} {mode}: {out['metrics']}, {ms:.2f} ms/img over {out['images']} "
+                  f"images, launches {counts} (expected {want}), result {out['result_file']}")
+    if counts != want or not np.isfinite(out["metrics"]["loss"]):
+        raise SystemExit(f"{arch} {mode} validate-quantized: wrong launch counts or bad metrics")
+    return out, ms, counts
+
+
+def grid_operands_on(m, k, n, dev, seed):
+    """``grid_operands``' operands made on the card (the CNN shapes reach
+    200k rows): unit-scale activations on E3M4 bias 5, lecun-scaled weights
+    with per-column biases 11..13."""
+    from fp8_quantization_tpu_torch.numerics.codec import quantize_exmy
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bias_b = torch.randint(11, 14, (n,), generator=gen, device=dev, dtype=torch.int32)
+    a = quantize_exmy(torch.randn((m, k), generator=gen, device=dev) * 2, 3, 4, 5)
+    b = quantize_exmy(torch.randn((k, n), generator=gen, device=dev) * k ** -0.5, 3, 4,
+                      bias_b.reshape(1, -1))
+    return a, b, bias_b
+
+
+def check_k3_cnn(k3, dev, sm_clock_hz):
+    """Phase 3, CNN shapes: K3 against its plain version at every distinct
+    (K, N) of MobileNetV2's and ResNet-18's ungrouped products on a
+    ``SLICE_ROWS`` row slice, within ``K * 2^-24 * sum_k |term_k|``; then
+    K3 timed at every product of a batch-16 forward beside its bound (the
+    largest of the bytes over HBM bandwidth, one table read a product and
+    one f32 add a product). Returns (worst |d|, {arch: per-forward times})."""
+    from fp8_quantization_tpu_torch.numerics.approx_matmul import approx_products
+    from fp8_quantization_tpu_torch.numerics.luts import get_error_table
+
+    flags = {key: FLAGSHIP[key] for key in ("with_approx", "with_s2nn2s_opt",
+                                              "golden_clip_of", "quant_btw_mult_accu")}
+    table = get_error_table(3, 4, True, 3)
+    worst, times = 0.0, {}
+    shapes = {(k, n) for arch in ("mobilenet_v2_quantized", "resnet18_quantized")
+              for _, g, _, k, n in cnn_products(arch, 1) if g == 1}
+    for k, n in sorted(shapes):
+        a, b, bb = grid_operands_on(SLICE_ROWS, k, n, dev, seed=k + n)
+        ours = k3.approx_matmul(a, b, 5, bb, 5, **FLAGSHIP)
+        plain = k3.approx_matmul_plain(a, b, 5, bb, 5, **FLAGSHIP)
+        tol = k * 2.0 ** -24 * approx_products(a, b, 3, 4, 5, bb, 5, table,
+                                               **flags).abs().sum(dim=1)
+        err = (ours - plain).abs()
+        worst = max(worst, float(err.max()))
+        if not (bool((err <= tol).all()) and bool(torch.isfinite(ours).all())):
+            raise SystemExit(f"K3 disagrees with its plain version at the CNN shape {k}x{n}")
+    phase("kernels", f"K3 at the {len(shapes)} distinct (K, N) of MobileNetV2 and ResNet-18 "
+                     f"(K {min(k for k, _ in shapes)}..{max(k for k, _ in shapes)}, N "
+                     f"{min(n for _, n in shapes)}..{max(n for _, n in shapes)}), "
+                     f"{SLICE_ROWS}-row slices: within K * 2^-24 * sum |terms|, max|d| "
+                     f"{worst:.3g}")
+    table_reads_per_s = (torch.cuda.get_device_properties(dev).multi_processor_count
+                         * SHARED_WORDS_PER_SM_CLOCK * sm_clock_hz)
+    for arch in ("mobilenet_v2_quantized", "resnet18_quantized"):
+        per_shape = {}
+        for name, g, m, k, n in cnn_products(arch, CNN_BATCH):
+            if g == 1:
+                per_shape.setdefault((m, k, n), [name, 0])[1] += 1
+        totals = {"ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "adds_ms": 0.0, "launches": 0}
+        lines = []
+        for (m, k, n), (name, count) in sorted(per_shape.items(), key=lambda e: -e[0][0]):
+            a, b, bb = grid_operands_on(m, k, n, dev, seed=m + k + n)
+            ms = cuda_ms(lambda: k3.approx_matmul(a, b, 5, bb, 5, **FLAGSHIP), 3)
+            bytes_ms = 1e3 * 4 * (m * k + k * n + m * n + n + 2) / HBM_BYTES_PER_S
+            ops_ms = 1e3 * m * k * n / table_reads_per_s
+            adds_ms = 1e3 * m * k * n / F32_ADDS_PER_S
+            _add(totals, count, ms=ms, bytes_ms=bytes_ms, ops_ms=ops_ms, adds_ms=adds_ms)
+            totals["launches"] += count
+            lines.append(f"{name} {m}x{k}x{n} x{count} {ms:.4f} ms (bound "
+                         f"{max(bytes_ms, ops_ms, adds_ms):.4f})")
+            del a, b
+        totals["bound_ms"] = max(totals["bytes_ms"], totals["ops_ms"], totals["adds_ms"])
+        totals["bound_by"] = ("bytes" if totals["bytes_ms"] == totals["bound_ms"]
+                              else "operations")
+        times[arch] = totals
+        phase("kernels", f"K3 {arch} per batch-{CNN_BATCH} forward: {totals['launches']} "
+                         f"launches, {totals['ms']:.3f} ms, bound {totals['bound_ms']:.3f} ms "
+                         f"({totals['bound_by']}; table reads {totals['ops_ms']:.3f}, f32 adds "
+                         f"{totals['adds_ms']:.3f}); by shape: " + "; ".join(lines))
+        torch.cuda.empty_cache()
+    return worst, times
+
+
+def calibrated_cnn(cli, arch, mode, dev):
+    """A full-width CNN built as the CLI builds it (seed 0) and calibrated
+    on one synthetic image; returns (model, input image on the card)."""
+    from fp8_quantization_tpu_torch.eval.data import synthetic_batches
+    from fp8_quantization_tpu_torch.eval.driver import calibrate
+
+    qc = cli.config_from_args(cli.build_parser().parse_args(cnn_flags(arch, mode)))
+    model, _ = cli.build_model(arch, qc, dev, torch.Generator().manual_seed(0))
+    (x, _), = synthetic_batches(1, 1, image_size=model.spec.image_size,
+                                num_classes=model.spec.num_classes, seed=3)
+    calibrate(model, [x], num_est_batches=1)
+    return model, torch.from_numpy(x).to(dev)
+
+
+def check_cnn_models(cli, dev, counters):
+    """Phase 5 for MobileNetV2 at full width, batch 1, from one calibrated
+    state each. Approx: FIXED logits through K3 and through its plain
+    version (the grouped convs take the oracle on both sides). Every
+    approximate product is requantized onto the result grid, so each is a
+    multiple of 2^(1 - bias_r - M) and the sums over K (at most 1280 here)
+    are exact in any order: the logits must agree as the approximate ViT's
+    do (``compare_logits``), with a relative RMS within ``RMS_LIMIT``.
+    FAST: every K2 call held to its contract and every K1 call to equality
+    on its own inputs (``verified_gemms``, ``verified_attention``); at batch
+    1 the classifier's K2 takes route A, so the logits must have the same
+    top-1 and a relative RMS within ``RMS_LIMIT``."""
+    from fp8_quantization_tpu_torch.quant.sites import FAST, FIXED
+
+    arch = "mobilenet_v2_quantized"
+    per = cnn_per_forward(arch)
+    model, xt = calibrated_cnn(cli, arch, "approx", dev)
+    with torch.no_grad():
+        zero_counts(counters)
+        logits = model(xt, FIXED)
+        counts = read_counts(counters)
+        with plain_kernels():
+            plain = model(xt, FIXED)
+    diff, scale = float((logits - plain).abs().max()), float(plain.abs().max())
+    rms = rel_rms(logits, plain)
+    same = bool((logits.argmax(-1) == plain.argmax(-1)).all())
+    ok = (tuple(logits.shape) == (1, model.spec.num_classes) and bool(torch.isfinite(logits).all())
+          and diff <= 1e-5 * max(1.0, scale) and same and rms <= RMS_LIMIT
+          and counts["K3"] == per["K3"] and read_counts(counters) == counts)
+    phase("model", f"MobileNetV2 approx FIXED, width 1.0, batch 1: max|kernel - plain| = "
+                   f"{diff:.3g} (max|logit| {scale:.3g}), relative RMS {rms:.4g} (limit "
+                   f"{RMS_LIMIT}), same top-1 {same}, launches {counts} (K3 expected "
+                   f"{per['K3']}), ok={ok}")
+    if not ok:
+        raise SystemExit("MobileNetV2 approx: kernels and plain versions disagree")
+    del model
+
+    model, xt = calibrated_cnn(cli, arch, "published", dev)
+    zero_counts(counters)
+    with torch.no_grad(), verified_gemms({}) as calls, verified_attention({}) as held:
+        logits = model(xt, FAST).float()
+    counts = read_counts(counters)
+    with torch.no_grad(), plain_kernels():
+        plain = model(xt, FAST).float()
+    diff = float((logits - plain).abs().max())
+    rms = rel_rms(logits, plain)
+    same = bool((logits.argmax(-1) == plain.argmax(-1)).all())
+    ok = (counts["K2"] == per["dense"] == calls["calls"] and counts["K1"] == per["K1"]
+          == held["K1"] and read_counts(counters) == counts and same and rms <= RMS_LIMIT
+          and bool(torch.isfinite(logits).all()))
+    phase("model", f"MobileNetV2 FAST, width 1.0, batch 1: {calls['calls']} K2 calls (routes "
+                   f"{sorted(calls['routes'])}) within their contract, {held['K1']} K1 calls "
+                   f"equal to plain; logits max|kernel - plain| {diff:.3g}, relative RMS "
+                   f"{rms:.4g} (limit {RMS_LIMIT}), same top-1 {same}, launches {counts}, "
+                   f"ok={ok}")
+    if not ok:
+        raise SystemExit("MobileNetV2 FAST: kernels and plain versions disagree")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -2004,6 +2323,8 @@ def main() -> int:
     attention_err, k7_vit = check_attention(LLAMA3_8B, dev)
     gemm_err.update(attention_err)
     check_k5(dm, dev)
+    cnn_err, k3_cnn = check_k3_cnn(k3, dev, 1e6 * sm_clock_mhz)
+    max_err = max(max_err, cnn_err)
 
     # 4. the main path: each run with every launch count zeroed just before
     counters = KERNELS
@@ -2027,6 +2348,10 @@ def main() -> int:
     if any(pub_counts.values()) or not np.isfinite(out_pub["metrics"]["loss"]):
         raise SystemExit("published validate-quantized launched a kernel or gave bad metrics")
     serving = {mode: run_serving(cli, counters, mode) for mode in SERVING_FLAGS}
+    # MobileNetV2 and ResNet-18/50 at full width, batch 16
+    t_cnn = time.perf_counter()
+    cnn = {f"{arch} {mode}": run_cnn(cli, counters, arch, mode) for arch, mode in CNN_RUNS}
+    cnn_s = time.perf_counter() - t_cnn
 
     # K1, K2 and K4 checked and timed at the shapes of one batch-8 forward
     times = time_serving_kernels(fm, dm, dev, gemm_err)
@@ -2049,6 +2374,9 @@ def main() -> int:
     check_model(cli, APPROX_FLAGS, dev, depth2)
     check_serving_model(cli, dev, depth2, counters)
     check_vit_fused(cli, dev, depth2, counters)
+    t0 = time.perf_counter()
+    check_cnn_models(cli, dev, counters)
+    cnn_s += time.perf_counter() - t0
     check_llama_model(dev, counters)
     check_llama_uniform(dev, counters)
 
@@ -2094,6 +2422,12 @@ def main() -> int:
         **({"per_vit_forward": {f: k7_vit[f] for f in
                                 ("launches", "ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")}} if key == "K7" else {}),
+        # the CNN runs of phase 4 (launches per run) and K3 per batch-16 CNN forward
+        **({"cnn_launches": {run: c[2][key] for run, c in cnn.items() if c[2][key]}}
+           if key in ("K1", "K2", "K3", "K4") else {}),
+        **({"per_cnn_forward": {arch: {f: t[f] for f in ("launches", "ms", "bound_ms",
+                                                          "bound_by")}
+                                for arch, t in k3_cnn.items()}} if key == "K3" else {}),
     } for name, key, src, tpu, launches, err in kernels]}
     step = "; ".join([f"{key} {t['step']['ms']:.3f} ms (bound {t['step']['bound_ms']:.3f}, "
                       f"torch.matmul {t['step']['library_ms']:.3f})"
@@ -2112,6 +2446,9 @@ def main() -> int:
         f"{r['peak_gb']:.2f} GB" for mode, r in llama.items())
     phase("done", f"ms/img: approx {approx_ms:.2f}, published {pub_ms:.2f}, "
                   + ", ".join(f"{mode} {serving[mode][1]:.2f}" for mode in SERVING_FLAGS)
+                  + "; CNN ms/img at batch 16: "
+                  + ", ".join(f"{run} {c[1]:.2f}" for run, c in cnn.items())
+                  + f" (CNN runs and checks {cnn_s:.1f} s)"
                   + f"; {served}; per batch-{BATCH} forward (K1-K4) or serving run (K5, K6, "
                   "K7): "
                   f"{per_forward}; K7 per batch-{BATCH} ViT-B/16 forward {k7_vit['ms']:.4f} ms "

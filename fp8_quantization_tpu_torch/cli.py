@@ -7,12 +7,14 @@ flag sets (``scripts/image_net.sh``) run unchanged:
         --architecture vit_quantized_approx --synthetic-data ... \\
         --approx_flag --withComp --with_approx
 
-The port runs ``vit_quantized`` and ``vit_quantized_approx`` on seeded
-random weights and synthetic data, in the fixed phase and in the serving
-modes ``--fast-mode``, ``--packed-weights`` and ``--chained-acts``; other
-architectures, checkpoints and the ImageNet loaders raise. ``--cuda`` (the
-default) runs on the GPU and raises when there is none; ``--no-cuda`` runs
-on the CPU.
+The port runs ``vit_quantized``, ``mobilenet_v2_quantized``,
+``resnet18_quantized``, ``resnet50_quantized`` and their ``_approx`` twins
+on seeded random weights and synthetic data, in the fixed phase (with
+``--reestimate-bn-batches`` for the CNNs' BN) and in the serving modes
+``--fast-mode`` and ``--packed-weights``; ``--chained-acts`` on the ViT
+only. ``demo_quantized``, checkpoints and the ImageNet loaders raise.
+``--cuda`` (the default) runs on the GPU and raises when there is none;
+``--no-cuda`` runs on the CPU.
 """
 
 from __future__ import annotations
@@ -233,15 +235,32 @@ def select_device(use_cuda: bool) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+# the CNN architectures (BN after every conv, no attention)
+CNN_ARCHS = ("mobilenet_v2_quantized", "resnet18_quantized", "resnet50_quantized")
+
+
 def build_model(arch: str, qc: QuantConfig, device, generator, spec=None):
     """(model on ``device``, zeros example batch of one). ``spec`` defaults to
-    ViT-B/16. Weights are drawn on the CPU from ``generator`` and then moved,
-    so a seed gives the same weights on every device."""
-    from .models.vit import VIT_B_16, QuantizedViT
+    the architecture's full size (ViT-B/16, MobileNetV2 1.0 at 224,
+    ResNet-18/50 at 224). Weights are drawn on the CPU from ``generator`` and
+    then moved, so a seed gives the same weights on every device."""
+    base = arch.replace("_approx", "")
+    if base == "vit_quantized":
+        from .models.vit import VIT_B_16, QuantizedViT
 
-    if arch.replace("_approx", "") != "vit_quantized":
+        model = QuantizedViT(qc=qc, spec=spec or VIT_B_16, generator=generator)
+    elif base == "mobilenet_v2_quantized":
+        from .models.mobilenet_v2 import MOBILENET_V2, QuantizedMobileNetV2
+
+        model = QuantizedMobileNetV2(qc=qc, spec=spec or MOBILENET_V2, generator=generator)
+    elif base in ("resnet18_quantized", "resnet50_quantized"):
+        from .models.resnet import QuantizedResNet, ResNetSpec
+
+        model = QuantizedResNet(qc=qc, spec=spec or ResNetSpec(depth=int(base[6:8])),
+                                generator=generator)
+    else:
         raise NotImplementedError(f"architecture {arch} {_LATER}")
-    model = QuantizedViT(qc=qc, spec=spec or VIT_B_16, generator=generator).to(device)
+    model = model.to(device)
     size = model.spec.image_size
     return model, torch.zeros((1, size, size, 3), device=device)
 
@@ -251,12 +270,15 @@ def _reject_unported(args):
         "--model-dir": args.model_dir,
         "--images-dir (ImageNet loaders)": args.images_dir and not args.synthetic_data,
         "--save-checkpoint-dir": args.save_checkpoint_dir,
-        "--reestimate-bn-batches": args.reestimate_bn_batches,
         "--mesh-data / --mesh-model": args.mesh_data * args.mesh_model > 1,
     }
     for flag, given in unported.items():
         if given:
             raise NotImplementedError(f"{flag} {_LATER}")
+    if args.chained_acts and args.architecture.replace("_approx", "") in CNN_ARCHS:
+        # BN under chained serving leaves as a pending Affine
+        raise NotImplementedError(f"--chained-acts on a CNN (the fused Affine boundary) "
+                                  f"{LATER_CNN}")
 
 
 def sync(device: torch.device):
@@ -282,7 +304,7 @@ def setup(args):
         from .ops.fastpath import int8_conv_codes
 
         if int8_conv_codes(qc):
-            # ViT's patch-embedding conv would take int8 codes
+            # every conv would take int8 codes
             raise NotImplementedError(
                 "--packed-weights with a per-tensor uniform act quantizer on quantized "
                 f"inputs (int8 conv serving, quantized_conv_int8) {LATER_CNN}")
@@ -306,10 +328,11 @@ def make_batches(args, model, max_batches=None):
 
 
 def run_validate(args) -> dict:
-    """Build, calibrate, evaluate and write the result file. Returns
-    ``{"metrics", "result_file", "device", "init_s", "validate_s",
-    "images"}``: ``validate_s`` is the wall time of calibration plus
-    evaluation, ``images`` the images those forwards took."""
+    """Build, calibrate, (re-estimate BN,) evaluate and write the result
+    file. Returns ``{"metrics", "result_file", "device", "init_s",
+    "validate_s", "images"}``: ``validate_s`` is the wall time of
+    calibration, BN re-estimation and evaluation, ``images`` the images
+    those forwards took."""
     from .eval import data as data_mod
     from .eval.driver import validate_quantized, write_result_file
 
@@ -326,12 +349,16 @@ def run_validate(args) -> dict:
             args.mini_test_step))
     else:
         eval_batches = list(make_batches(args, model, args.max_eval_batches))
+    # BN re-estimation batches come from the calibration data, as the JAX
+    # CLI takes both from its training batches
+    bn_batches = (list(make_batches(args, model, args.reestimate_bn_batches))
+                  [:args.reestimate_bn_batches] if args.reestimate_bn_batches else None)
     t2 = time.perf_counter()
     metrics, _ = validate_quantized(
         model, calib, eval_batches, num_est_batches=args.num_est_batches,
         quant_w=args.weight_quant, quant_a=args.act_quant, fast=args.fast_mode,
         packed=args.packed_weights, chained=args.chained_acts, qc=qc,
-        calib_example=example)
+        calib_example=example, bn_reestimate_batches=bn_batches)
     sync(device)
     t3 = time.perf_counter()
 
@@ -341,7 +368,7 @@ def run_validate(args) -> dict:
     print(f"results written to {path}")
     return {"metrics": metrics, "result_file": path, "device": str(device),
             "init_s": t1 - t0, "validate_s": t3 - t2,
-            "images": sum(len(y) for _, y in calib + eval_batches)}
+            "images": sum(len(y) for _, y in calib + eval_batches + (bn_batches or []))}
 
 
 def main(argv=None):

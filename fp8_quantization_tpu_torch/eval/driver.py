@@ -2,7 +2,8 @@
 
 The JAX package threads the ``quant`` / ``quant_est`` collections through
 jitted steps; here the QuantSites update their buffers in place during the
-``ESTIMATE`` forwards, and ``FIXED`` forwards read them frozen. The serving
+``ESTIMATE`` forwards, and ``FIXED`` forwards read them frozen; BN
+re-estimation writes each BN layer's running stats in place. The serving
 phases (``fast``, ``packed``, ``chained``) first cache the frozen weights
 (``cache_quantized_weights``) and pack them to 1-byte codes
 (``ops.fastpath.pack_dense_caches``), in place on the model.
@@ -18,7 +19,6 @@ from typing import Any, Dict, Iterable, Optional, Tuple
 
 import torch
 
-from .. import LATER as _LATER
 from ..quant.sites import QuantPhase
 from .metrics import MetricState, finalize_metrics, update_metrics
 
@@ -46,6 +46,34 @@ def calibrate(model, batches: Iterable[Any], *, num_est_batches: Optional[int] =
             break
         x = batch[0] if isinstance(batch, tuple) else batch
         model(_as_input(x, dev), qp)
+    return model
+
+
+@torch.no_grad()
+def reestimate_bn(model, batches: Iterable[Any], *, num_batches: int = 50,
+                  quant_w: bool = True, quant_a: bool = True):
+    """BN re-estimation: at most ``num_batches`` fixed-phase forwards in
+    which every BN layer normalizes with its batch's stats, then each
+    layer's running mean and variance become the average of its per-batch
+    stats. A model without BN is left as it is. Returns the model."""
+    bns = [m for m in model.modules() if getattr(m, "bn_follows", False)]
+    if not bns:
+        return model
+    qp = QuantPhase(phase="fixed", quant_w=quant_w, quant_a=quant_a, reestimate_bn=True)
+    dev = _device(model)
+    total, count = None, 0
+    for i, batch in enumerate(batches):
+        if i >= num_batches:
+            break
+        x = batch[0] if isinstance(batch, tuple) else batch
+        model(_as_input(x, dev), qp)
+        stats = [(m.mean.clone(), m.var.clone()) for m in bns]
+        total = stats if total is None else [
+            (tm + sm, tv + sv) for (tm, tv), (sm, sv) in zip(total, stats)]
+        count += 1
+    for m, (mean, var) in zip(bns, total or []):
+        m.mean.copy_(mean / count)
+        m.var.copy_(var / count)
     return model
 
 
@@ -94,14 +122,15 @@ def validate_quantized(
     calib_example=None,
     bn_reestimate_batches: Optional[Iterable[Any]] = None,
 ) -> Tuple[Dict[str, float], Any]:
-    """The validate-quantized pipeline. ``packed=True`` (needs ``qc`` and
-    ``calib_example``) freezes the quantized weights and installs 1-byte
-    codes before evaluating under the packed phase. Returns
+    """The validate-quantized pipeline. ``bn_reestimate_batches`` re-estimates
+    the BN stats after calibration (:func:`reestimate_bn`). ``packed=True``
+    (needs ``qc`` and ``calib_example``) freezes the quantized weights and
+    installs 1-byte codes before evaluating under the packed phase. Returns
     (final_metrics, calibrated model)."""
-    if bn_reestimate_batches is not None:
-        raise NotImplementedError(f"BN re-estimation {_LATER}")
     calibrate(model, calib_batches, num_est_batches=num_est_batches,
               quant_w=quant_w, quant_a=quant_a)
+    if bn_reestimate_batches is not None:
+        reestimate_bn(model, bn_reestimate_batches, quant_w=quant_w, quant_a=quant_a)
     if packed:
         if qc is None or calib_example is None:
             raise ValueError("packed eval needs qc and calib_example")

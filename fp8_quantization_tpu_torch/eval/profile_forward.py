@@ -3,6 +3,8 @@
     python -m fp8_quantization_tpu_torch.eval.profile_forward [--reps N] \\
         validate-quantized --architecture vit_quantized_approx --synthetic-data ...
 
+Any architecture the CLI builds (ViT-B/16, MobileNetV2, ResNet-18/50).
+
 Takes the CLI's own arguments, builds and calibrates the model as
 ``validate-quantized`` does (seeded weights, the init forward, the first
 synthetic batch; with ``--packed-weights`` also the weight cache and the

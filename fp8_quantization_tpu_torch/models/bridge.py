@@ -8,9 +8,11 @@ module here. The layouts already agree (``(in, out)`` dense kernels,
 with dots, with the per-site ``q`` / ``est`` dict levels dropped, because a
 QuantSite keeps both states as its own buffers. The ``quant_cache``
 collection (cached quantized weights and packed codes) maps onto the
-layers' cache buffers of the same names (``ops.layers.CACHE_KEYS``). The ViT
-and the Llama models (``embed``, ``layer_{i}``, ``k_cache_quantizer``, ...)
-carry across alike.
+layers' cache buffers of the same names (``ops.layers.CACHE_KEYS``), and
+``batch_stats`` (a BN layer's running ``mean`` and ``var``) onto
+``BNQuantConv``'s buffers. The ViT, the Llama models (``embed``,
+``layer_{i}``, ``k_cache_quantizer``, ...) and the CNNs (``features_{i}``,
+``layer{l}_{b}``, ``downsample_0``, ...) carry across alike.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ import numpy as np
 import torch
 
 # collection -> the dict level that holds one site's state in it
-_SITE_LEVEL = {"params": None, "quant": "q", "quant_est": "est", "quant_cache": None}
+_SITE_LEVEL = {"params": None, "quant": "q", "quant_est": "est", "quant_cache": None,
+               "batch_stats": None}
 
 
 def _flatten(tree: Mapping, prefix, drop, out: Dict[str, torch.Tensor]):
@@ -43,9 +46,9 @@ def _tensor(arr: np.ndarray) -> torch.Tensor:
 
 
 def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """``{"params": ..., "quant": ..., "quant_est": ..., "quant_cache": ...}``
-    of numpy arrays -> ``state_dict``. Other collections have no counterpart
-    in the port yet and raise."""
+    """``{"params": ..., "quant": ..., "quant_est": ..., "quant_cache": ...,
+    "batch_stats": ...}`` of numpy arrays -> ``state_dict``. Other
+    collections have no counterpart in the port yet and raise."""
     extra = set(variables) - set(_SITE_LEVEL)
     if extra:
         raise NotImplementedError(

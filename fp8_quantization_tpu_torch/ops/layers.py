@@ -1,6 +1,6 @@
 """Quantized layers with the reference's forward protocol (port of
-``ops/layers.py``: ``QuantDense``, ungrouped 2-D ``QuantConv`` and
-``QuantLayerNorm``).
+``ops/layers.py``: ``QuantDense``, 2-D ``QuantConv`` (grouped and depthwise
+too), ``BNQuantConv`` with its unfolded BN, and ``QuantLayerNorm``).
 
 Each layer holds up to three QuantSites (``activation_quantizer``,
 ``res_quantizer``, ``weight_quantizer``) and runs
@@ -10,7 +10,10 @@ Each layer holds up to three QuantSites (``activation_quantizer``,
 
 With the approx run method armed, the plain product runs first only in the
 ``ESTIMATE`` phase or under ``original_quantize_res`` (it drives the
-res-quantizer's range), and the approximate product replaces it.
+res-quantizer's range), and the approximate product replaces it: through
+the K3 kernel for dense layers and ungrouped convs, through the jnp
+oracle's semantics (:func:`approx_matmul_oracle`) for grouped and depthwise
+convs, whose groups the JAX package ``jax.vmap``s over its oracle.
 
 A layer creates exactly the sites its flax counterpart populates under
 ``ESTIMATE``, named alike, so ``models.bridge`` maps the JAX variables onto
@@ -43,8 +46,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import LATER as _LATER
+from .. import LATER_CNN
 from ..config import ApproxConfig, EstimatorConfig, QMethod, QuantConfig
+from ..numerics.approx_matmul import approx_products
 from ..numerics.codec import unpack_exmy
+from ..numerics.luts import get_error_table
 from ..quant.sites import FIXED, QuantPhase, QuantSite, codes_eligible, coded_shape, decoded
 from .cuda import approx_matmul as k3
 from .cuda import dequant_matmul as k4
@@ -73,14 +79,18 @@ def default_fp_bias(approx: ApproxConfig, device=None):
     return torch.tensor([float(2 ** (approx.expo_width - 1))], device=device)
 
 
-def approx_matmul_2d(x2d, w2d, bias_a, bias_b, bias_r, approx: ApproxConfig):
+def approx_matmul_2d(x2d, w2d, bias_a, bias_b, bias_r, approx: ApproxConfig,
+                     allow_kernel: bool = True):
     """(M, K) @ (K, N) through the approximate-multiplier simulation.
     ``bias_b`` is the per-output-channel weight bias vector. Runs the K3
-    wrapper on every device: its plain version on the CPU, the kernel on a
-    GPU."""
+    wrapper on every device (its plain version on the CPU, the kernel on a
+    GPU); ``allow_kernel=False`` is the JAX package's ``allow_pallas=False``:
+    :func:`approx_matmul_oracle`, which also takes a leading group axis."""
     if approx.sim_hw_add_ofuf or approx.debug_mode or approx.self_check_mode:
         raise NotImplementedError(
             f"sim_hw_add_ofuf / debug_mode / self_check_mode {_LATER}")
+    if not allow_kernel:
+        return approx_matmul_oracle(x2d, w2d, bias_a, bias_b, bias_r, approx)
     return k3.approx_matmul(
         x2d.to(torch.float32),
         w2d.to(torch.float32),
@@ -96,8 +106,44 @@ def approx_matmul_2d(x2d, w2d, bias_a, bias_b, bias_r, approx: ApproxConfig):
     )
 
 
+# products of the (G, rows, K, N) tensor per call of the oracle's golden
+ORACLE_CHUNK_ELEMENTS = 1 << 26
+
+
+def approx_matmul_oracle(x, w, bias_a, bias_b, bias_r, approx: ApproxConfig):
+    """The JAX package's jnp oracle on any device, batched over a leading
+    group axis: x (G, M, K), w (G, K, N), bias_b (G, N) (or (N,) / scalar
+    without the group axis); returns (G, M, N). Its s2nn2s zero mask is the
+    raw product's (``zero_mask="raw"``), and it sums over k in ascending
+    order, as XLA's CPU reduction does up to K = 32 (every depthwise conv's
+    K is 9). Rows go in chunks of at most ``ORACLE_CHUNK_ELEMENTS`` products
+    (each output row depends only on its own row of x)."""
+    table = get_error_table(approx.expo_width, approx.mant_width, approx.with_comp,
+                            approx.dnsmp_factor)
+    x = x.to(torch.float32)
+    w = w.to(torch.float32)
+    m, k, n = x.shape[-2], x.shape[-1], w.shape[-1]
+    rows = max(1, ORACLE_CHUNK_ELEMENTS // max(1, math.prod(x.shape[:-2]) * k * n))
+    out = x.new_empty((*x.shape[:-1], n))
+    for r in range(0, m, rows):
+        terms = approx_products(
+            x[..., r:r + rows, :], w, approx.expo_width, approx.mant_width, bias_a,
+            bias_b, bias_r, table, with_approx=approx.with_approx,
+            with_s2nn2s_opt=approx.with_s2nn2s_opt, golden_clip_of=approx.golden_clip_of,
+            quant_btw_mult_accu=approx.quant_btw_mult_accu, zero_mask="raw")
+        acc = torch.zeros_like(terms[..., 0, :])
+        for kk in range(k):
+            acc = acc + terms[..., kk, :]
+        out[..., r:r + rows, :] = acc
+    return out
+
+
 class _QuantOpBase(nn.Module):
     """Shared protocol pieces. Subclasses provide the linear op."""
+
+    # True on the BN-fused layers, whose result feeds the unfolded BN at
+    # once: they never emit chained codes
+    bn_follows = False
 
     def __init__(self, qc: QuantConfig, *, activation: Activation = None,
                  n_bits_w: Optional[int] = None, n_bits_act: Optional[int] = None,
@@ -190,7 +236,8 @@ class _QuantOpBase(nn.Module):
 
     def _emits_codes(self, qp: QuantPhase) -> bool:
         """Whether this layer's act and res sites pass chained codes under ``qp``."""
-        return codes_eligible(self.qc.act_quantizer(self.n_bits_act), qp)
+        return (codes_eligible(self.qc.act_quantizer(self.n_bits_act), qp)
+                and not self.bn_follows)
 
     def _special_armed(self) -> bool:
         rm = self.qc.run_method
@@ -206,8 +253,9 @@ class _QuantOpBase(nn.Module):
             res = self.res_quantizer(res, qp, as_codes=as_codes)
         return res
 
-    def _special_matmul(self, x2d, w2d, a_bias, w_bias):
-        """The armed special path on a 2-D matmul."""
+    def _special_matmul(self, x2d, w2d, a_bias, w_bias, allow_kernel: bool = True):
+        """The armed special path on a 2-D matmul (``allow_kernel=False``:
+        the oracle, on operands with a leading group axis)."""
         if self.qc.run_method.quantize_after_mult_and_add:
             raise NotImplementedError(f"quantize_after_mult_and_add {_LATER}")
         approx = self.qc.approx
@@ -219,7 +267,7 @@ class _QuantOpBase(nn.Module):
         if w_bias is None:
             raise ValueError("approx path requires quantized weights")
         return approx_matmul_2d(x2d, w2d, a_b.reshape(-1)[0], w_bias,
-                                r_b.reshape(-1)[0], approx)
+                                r_b.reshape(-1)[0], approx, allow_kernel)
 
     def _tail(self, res, qp: QuantPhase):
         if self.activation is not None:
@@ -385,9 +433,12 @@ def conv_patches(x, kernel_shape, strides, padding, dilation):
 
 
 class QuantConv(_QuantOpBase):
-    """Quantized 2-D convolution: NHWC inputs, ``(kh, kw, I, O)`` kernel,
-    per-channel weight quantization along O. Grouped and depthwise convs
-    belong to a later slice."""
+    """Quantized 2-D convolution: NHWC inputs, ``(kh, kw, I/g, O)`` kernel
+    for ``g = feature_group_count`` groups (``g = I`` depthwise),
+    per-channel weight quantization along O. The plain product is
+    ``F.conv2d(groups=g)`` in f32; the approx path runs the im2col patches
+    through K3 for ``g = 1`` and through :func:`approx_matmul_oracle`, all
+    groups in one call, otherwise."""
 
     def __init__(self, qc: QuantConfig, in_features: int, features: int, *,
                  kernel_size: Tuple[int, int] = (3, 3),
@@ -396,18 +447,20 @@ class QuantConv(_QuantOpBase):
                  kernel_dilation: Optional[Tuple[int, int]] = None,
                  feature_group_count: int = 1, use_bias: bool = True,
                  generator=None, device=None, **kw):
-        if feature_group_count != 1:
-            raise NotImplementedError(f"grouped / depthwise QuantConv {_LATER}")
         if len(kernel_size) != 2:
             raise NotImplementedError(f"QuantConv of spatial rank {len(kernel_size)} {_LATER}")
+        g = feature_group_count
+        if in_features % g or features % g:
+            raise ValueError(f"{g} groups do not divide {in_features} -> {features} channels")
         super().__init__(qc, weight_channels=features, device=device, **kw)
         self._init_cache()
         self.features = features
+        self.groups = g
         self.kernel_size = tuple(kernel_size)
         self.strides = tuple(strides) if strides is not None else (1, 1)
         self.dilation = tuple(kernel_dilation) if kernel_dilation is not None else (1, 1)
         self.padding = padding
-        shape = (*self.kernel_size, in_features, features)
+        shape = (*self.kernel_size, in_features // g, features)
         fan_in = math.prod(shape[:-1])
         self.kernel = nn.Parameter(lecun_normal_(
             torch.empty(shape, device=device), fan_in, generator))
@@ -419,7 +472,9 @@ class QuantConv(_QuantOpBase):
 
     def _conv_body(self, x, qp: QuantPhase):
         x = decoded(x)
-        kernel_shape = (*self.kernel_size, x.shape[-1], self.features)
+        g = self.groups
+        in_ch = x.shape[-1]
+        kernel_shape = (*self.kernel_size, in_ch // g, self.features)
         pw = self._packed_weights(qp)
         x, a_bias = self._quant_in(x, qp)
         if pw is not None:
@@ -440,24 +495,82 @@ class QuantConv(_QuantOpBase):
                                      self.dilation, self.padding)
             res = F.conv2d(_pad_nchw(xf.permute(0, 3, 1, 2), pads),
                            wf.permute(3, 2, 0, 1), stride=self.strides,
-                           dilation=self.dilation).permute(0, 2, 3, 1)
+                           dilation=self.dilation, groups=g).permute(0, 2, 3, 1)
             if self.bias is not None:
                 res = res + self.bias
             res = self._res_quant(res, qp)
 
         if self._special_armed():
-            patches = conv_patches(x.to(torch.float32), tuple(w.shape), self.strides,
-                                   self.padding, self.dilation)
+            patches = conv_patches(x.to(torch.float32), (*self.kernel_size, in_ch,
+                                                         self.features),
+                                   self.strides, self.padding, self.dilation)
             lead = patches.shape[:-1]
-            out2d = self._special_matmul(
-                patches.reshape(-1, patches.shape[-1]),
-                w.to(torch.float32).reshape(-1, self.features),
-                a_bias,
-                None if w_bias is None else w_bias.reshape(-1))
-            res = out2d.reshape(*lead, self.features)
+            m = math.prod(lead)
+            k_elems = math.prod(self.kernel_size)
+            ipg, og = in_ch // g, self.features // g
+            # the patches' last dim is ordered (*K, I), and I splits into
+            # (G, I/g); the kernel's O into (G, O/g)
+            pg = patches.reshape(m, k_elems, g, ipg).permute(2, 0, 1, 3).reshape(g, m, -1)
+            wg = w.to(torch.float32).reshape(k_elems, ipg, g, og).permute(2, 0, 1, 3)
+            wg = wg.reshape(g, k_elems * ipg, og)
+            if w_bias is not None:
+                # a per-tensor weight bias serves every channel
+                w_bias = (w_bias.reshape(1, 1).expand(g, og) if w_bias.numel() == 1
+                          else w_bias.reshape(g, og))
+            if g == 1:
+                out_g = self._special_matmul(pg[0], wg[0], a_bias,
+                                             None if w_bias is None else w_bias[0])[None]
+            else:
+                out_g = self._special_matmul(pg, wg, a_bias, w_bias, allow_kernel=False)
+            res = out_g.permute(1, 0, 2).reshape(*lead, self.features)
             if self.bias is not None:
                 res = res + self.bias
         return res
+
+
+class BNQuantConv(QuantConv):
+    """Quantized conv + *unfolded* batch norm: f32 running stats (``mean``,
+    ``var`` buffers, the flax ``batch_stats`` collection) and ``gamma`` /
+    ``beta`` applied after the quantized conv result (and any res-quant or
+    approx rerun), before the fused activation. ``QuantPhase.reestimate_bn``
+    normalizes with the batch's own stats and stores them (the re-estimation
+    pass of ``eval.driver.reestimate_bn`` averages them over batches)."""
+
+    bn_follows = True
+
+    def __init__(self, qc: QuantConfig, in_features: int, features: int, *,
+                 bn_epsilon: float = 1e-5, device=None, **kw):
+        super().__init__(qc, in_features, features, device=device, **kw)
+        self.bn_epsilon = bn_epsilon
+        self.gamma = nn.Parameter(torch.ones(features, device=device))
+        self.beta = nn.Parameter(torch.zeros(features, device=device))
+        self.register_buffer("mean", torch.zeros(features, device=device))
+        self.register_buffer("var", torch.ones(features, device=device))
+
+    def forward(self, x, qp: QuantPhase = FIXED):
+        res = _unfolded_bn(self, self._conv_body(x, qp), qp, self.bn_epsilon)
+        return self._tail(res, qp)
+
+
+def _unfolded_bn(module, res, qp: QuantPhase, epsilon: float):
+    """Unfolded f32 BN over all axes but the channel's. Under
+    ``reestimate_bn`` it normalizes with the batch's (biased) stats and
+    stores their mean and unbiased variance in the running buffers
+    (momentum-1 train-mode BN)."""
+    if qp.chained:
+        raise NotImplementedError(
+            f"BN under chained serving (the fused Affine boundary) {LATER_CNN}")
+    res = decoded(res).to(torch.float32)
+    if qp.reestimate_bn:
+        dims = tuple(range(res.ndim - 1))
+        mean = torch.mean(res, dim=dims)
+        var = torch.var(res, dim=dims, unbiased=False)
+        n = math.prod(res.shape[:-1])
+        module.mean.copy_(mean)
+        module.var.copy_(var * (n / max(n - 1, 1)))
+    else:
+        mean, var = module.mean, module.var
+    return (res - mean) * torch.rsqrt(var + epsilon) * module.gamma + module.beta
 
 
 class QuantLayerNorm(_QuantOpBase):

@@ -108,8 +108,9 @@ class QuantPhase:
     :class:`CodedFP` codes between layers. ``fused_sdpa=True`` sends the
     serving phases' attention through the fused SDPA (K7) and decode
     attention (K6) kernels; ``None`` and ``False`` keep the einsum path, as
-    in the JAX package. The re-estimation and gradient-scaling fields raise
-    until their slices land.
+    in the JAX package. ``reestimate_bn`` has the BN layers normalize with
+    the batch's stats and store them (``eval.driver.reestimate_bn``);
+    ``grad_scaling`` raises until its slice lands.
     """
 
     phase: str = "fixed"  # "estimate" | "fixed"
@@ -126,9 +127,8 @@ class QuantPhase:
     def __post_init__(self):
         if self.phase not in ("estimate", "fixed"):
             raise ValueError(f"unknown phase {self.phase!r}")
-        for name in ("grad_scaling", "reestimate_bn"):
-            if getattr(self, name):
-                raise NotImplementedError(f"QuantPhase.{name} {_LATER}")
+        if self.grad_scaling:
+            raise NotImplementedError(f"QuantPhase.grad_scaling {_LATER}")
 
     @property
     def estimating(self) -> bool:

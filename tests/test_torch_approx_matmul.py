@@ -183,9 +183,12 @@ def test_s2nn2s_zero_mask_on_every_single_product(expo, mant):
     kernel, which the JAX CLI runs, one whose requantized golden is 0. On
     E3M4 and E4M3 the two agree on every such product; on E2M5 they do not
     (a nonzero product that rounds to zero on a low-``bias_r`` result grid,
-    such as 1.03125 * 1.9375 under ``bias_r = -6``). The port follows the
-    Pallas kernel: its ``approx_matmul_golden`` and K3 (plain version here,
-    the CUDA kernel on the card) equal it on every product."""
+    such as 1.03125 * 1.9375 under ``bias_r = -6``). The port's
+    ``approx_matmul_golden`` takes the mask as an argument: with
+    ``zero_mask="raw"`` (the grouped and depthwise approx convs' oracle) it
+    equals the jnp oracle on every product; with ``"requantized"`` (the
+    default) it and K3 (plain version here, the CUDA kernel on the card)
+    equal the Pallas kernel on every product."""
     flags = dict(with_approx=True, with_s2nn2s_opt=True, quant_btw_mult_accu=True)
     table = j_table(expo, mant, True, 3)
 
@@ -212,6 +215,10 @@ def test_s2nn2s_zero_mask_on_every_single_product(expo, mant):
                 expo_width=expo, mant_width=mant, with_comp=True, **flags))
             np.testing.assert_array_equal(ours, jax_kernel, err_msg=f"{ba} {br}")
             np.testing.assert_array_equal(golden, jax_kernel, err_msg=f"{ba} {br}")
+            raw = approx_matmul_golden(a, b, expo, mant, ba, torch.from_numpy(bias_b), br,
+                                       get_error_table(expo, mant, True, 3),
+                                       zero_mask="raw", **flags).numpy()
+            np.testing.assert_array_equal(raw, jax_golden, err_msg=f"{ba} {br}")
             disagree += int((jax_kernel != jax_golden).sum())
     # the two JAX functions disagree only where the grid is low enough
     assert (disagree > 0) == ((expo, mant) == (2, 5))

@@ -232,8 +232,8 @@ def test_serving_flags_with_cuda_and_no_gpu_raise(monkeypatch):
 
 
 def test_later_slices_raise():
-    """Fused CNN boundaries, int8 codes of a uniform conv and the
-    training-time phase switches raise."""
+    """Fused CNN boundaries, int8 codes of a uniform conv and LSQ gradient
+    scaling raise."""
     with pytest.raises(NotImplementedError, match="later slice"):
         tsites.Affine(torch.zeros(2), 1.0, 0.0)
     uniform = tc.QuantConfig(method=tc.QMethod.symmetric_uniform, quantize_input=True,
@@ -243,9 +243,10 @@ def test_later_slices_raise():
     conv.w_q = torch.zeros((1, 1, 2, 2))
     with pytest.raises(NotImplementedError, match="later slice"):
         fastpath.pack_dense_caches(conv, uniform)
-    for name in ("grad_scaling", "reestimate_bn"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            dataclasses.replace(tsites.FIXED, **{name: True})
+    with pytest.raises(NotImplementedError, match="later slice"):
+        dataclasses.replace(tsites.FIXED, grad_scaling=True)
+    # BN re-estimation is ported (the CNN slice)
+    assert dataclasses.replace(tsites.FIXED, reestimate_bn=True).reestimate_bn
     site = tsites.QuantSite(_qc(tc, False).act_quantizer(), _qc(tc, False).act_range)
     with pytest.raises(ValueError, match="as_codes"):
         site(torch.ones(3), tsites.PACKED, as_codes=True)   # not a chained phase

@@ -142,15 +142,15 @@ def test_unported_pieces_raise():
     # the serving phases (fast, packed, chained) are ported; these are not
     with pytest.raises(NotImplementedError):
         tsites.QuantPhase(phase="fixed", grad_scaling=True)
-    with pytest.raises(NotImplementedError):
-        tsites.QuantPhase(phase="fixed", reestimate_bn=True)
+    # BN re-estimation is ported (the CNN slice); LSQ gradient scaling is not
+    assert tsites.QuantPhase(phase="fixed", reestimate_bn=True).reestimate_bn
     uniform = tc.QuantizerConfig(method=tc.QMethod.symmetric_uniform)
     with pytest.raises(NotImplementedError):
         tq.apply(uniform, tq.init(uniform), torch.ones(3), grad_scaling=True)
     with pytest.raises(NotImplementedError):
         tsites.QuantSite(_qcfg(tc, False), tc.EstimatorConfig(tc.RangeMethod.MSE))
     with pytest.raises(NotImplementedError):
-        tlayers.QuantConv(tc.QuantConfig(), 4, 4, feature_group_count=2)
+        tlayers.QuantConv(tc.QuantConfig(), 4, 4, kernel_size=(3,))
 
 
 @pytest.mark.parametrize("padding,strides,dilation", [

@@ -153,7 +153,7 @@ def test_cuda_flag_without_gpu_raises(monkeypatch):
 
 def test_unported_architecture_raises():
     with pytest.raises(NotImplementedError, match="later slice"):
-        tcli.build_model("resnet18_quantized", tc.QuantConfig(), torch.device("cpu"),
+        tcli.build_model("demo_quantized", tc.QuantConfig(), torch.device("cpu"),
                          torch.Generator().manual_seed(0))
     assert dataclasses.asdict(TSpec()) == dataclasses.asdict(JSpec())
 
