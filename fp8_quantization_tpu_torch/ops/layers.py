@@ -79,18 +79,18 @@ def default_fp_bias(approx: ApproxConfig, device=None):
     return torch.tensor([float(2 ** (approx.expo_width - 1))], device=device)
 
 
-def approx_matmul_2d(x2d, w2d, bias_a, bias_b, bias_r, approx: ApproxConfig,
-                     allow_kernel: bool = True):
-    """(M, K) @ (K, N) through the approximate-multiplier simulation.
-    ``bias_b`` is the per-output-channel weight bias vector. Runs the K3
-    wrapper on every device (its plain version on the CPU, the kernel on a
-    GPU); ``allow_kernel=False`` is the JAX package's ``allow_pallas=False``:
-    :func:`approx_matmul_oracle`, which also takes a leading group axis."""
+def _refuse_unported(approx: ApproxConfig):
     if approx.sim_hw_add_ofuf or approx.debug_mode or approx.self_check_mode:
         raise NotImplementedError(
             f"sim_hw_add_ofuf / debug_mode / self_check_mode {_LATER}")
-    if not allow_kernel:
-        return approx_matmul_oracle(x2d, w2d, bias_a, bias_b, bias_r, approx)
+
+
+def approx_matmul_2d(x2d, w2d, bias_a, bias_b, bias_r, approx: ApproxConfig):
+    """(M, K) @ (K, N) through the approximate-multiplier simulation.
+    ``bias_b`` is the per-output-channel weight bias vector. Runs the K3
+    wrapper on every device: its plain version on the CPU, the kernel on a
+    GPU."""
+    _refuse_unported(approx)
     return k3.approx_matmul(
         x2d.to(torch.float32),
         w2d.to(torch.float32),
@@ -118,6 +118,7 @@ def approx_matmul_oracle(x, w, bias_a, bias_b, bias_r, approx: ApproxConfig):
     order, as XLA's CPU reduction does up to K = 32 (every depthwise conv's
     K is 9). Rows go in chunks of at most ``ORACLE_CHUNK_ELEMENTS`` products
     (each output row depends only on its own row of x)."""
+    _refuse_unported(approx)
     table = get_error_table(approx.expo_width, approx.mant_width, approx.with_comp,
                             approx.dnsmp_factor)
     x = x.to(torch.float32)
@@ -253,21 +254,24 @@ class _QuantOpBase(nn.Module):
             res = self.res_quantizer(res, qp, as_codes=as_codes)
         return res
 
-    def _special_matmul(self, x2d, w2d, a_bias, w_bias, allow_kernel: bool = True):
-        """The armed special path on a 2-D matmul (``allow_kernel=False``:
-        the oracle, on operands with a leading group axis)."""
+    def _special_biases(self, a_bias, w_bias, dev):
+        """The armed special path's (activation, weight, result) biases; a
+        site without an FP bias takes ``default_fp_bias``."""
         if self.qc.run_method.quantize_after_mult_and_add:
             raise NotImplementedError(f"quantize_after_mult_and_add {_LATER}")
+        if w_bias is None:
+            raise ValueError("approx path requires quantized weights")
         approx = self.qc.approx
-        dev = x2d.device
         a_b = a_bias if a_bias is not None else default_fp_bias(approx, dev)
         r_bias = (self.res_quantizer.fp_bias()
                   if self.res_quantizer is not None else None)
         r_b = r_bias if r_bias is not None else default_fp_bias(approx, dev)
-        if w_bias is None:
-            raise ValueError("approx path requires quantized weights")
-        return approx_matmul_2d(x2d, w2d, a_b.reshape(-1)[0], w_bias,
-                                r_b.reshape(-1)[0], approx, allow_kernel)
+        return a_b.reshape(-1)[0], w_bias, r_b.reshape(-1)[0]
+
+    def _special_matmul(self, x2d, w2d, a_bias, w_bias):
+        """The armed special path on a 2-D matmul (K3)."""
+        return approx_matmul_2d(x2d, w2d, *self._special_biases(a_bias, w_bias, x2d.device),
+                                self.qc.approx)
 
     def _tail(self, res, qp: QuantPhase):
         if self.activation is not None:
@@ -521,7 +525,9 @@ class QuantConv(_QuantOpBase):
                 out_g = self._special_matmul(pg[0], wg[0], a_bias,
                                              None if w_bias is None else w_bias[0])[None]
             else:
-                out_g = self._special_matmul(pg, wg, a_bias, w_bias, allow_kernel=False)
+                # the JAX package vmaps its jnp oracle over the groups
+                out_g = approx_matmul_oracle(
+                    pg, wg, *self._special_biases(a_bias, w_bias, pg.device), self.qc.approx)
             res = out_g.permute(1, 0, 2).reshape(*lead, self.features)
             if self.bias is not None:
                 res = res + self.bias

@@ -25,6 +25,8 @@ from fp8_quantization_tpu_torch.numerics.luts import get_error_table
 from fp8_quantization_tpu_torch.ops.cuda import approx_matmul as k3
 from test_torch_cuda import CASES, case_id, grid_operands
 
+torch.set_num_threads(1)  # the suite's test workers share the machine's cores
+
 TOL = dict(rtol=1e-6, atol=1e-6)
 
 # jitted: op-by-op dispatch of the oracle compiles every primitive separately

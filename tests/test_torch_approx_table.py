@@ -29,6 +29,8 @@ from fp8_quantization_tpu_torch.numerics.luts import get_error_table
 from fp8_quantization_tpu_torch.ops.cuda import approx_matmul as k3
 from test_torch_cuda import CASES, case_id
 
+torch.set_num_threads(1)  # the suite's test workers share the machine's cores
+
 # operand biases (a, b) and result biases: E3M4's value space at bias 5
 # spans binades -8..2, at 3 binades -6..4, so bias_r from -12 to 27 moves
 # the products from wholly below the result grid's smallest step to wholly

@@ -26,6 +26,8 @@ from fp8_quantization_tpu_torch.ops.cuda import attention as k7
 from fp8_quantization_tpu_torch.ops.cuda import decode_attention as k6
 from fp8_quantization_tpu_torch.ops.cuda.fused_matmul import quantize_block_plain
 
+torch.set_num_threads(1)  # the suite's test workers share the machine's cores
+
 TOL = dict(rtol=2e-3, atol=2e-3)
 
 

@@ -45,6 +45,8 @@ from fp8_quantization_tpu_torch.ops.cuda import KERNELS
 from fp8_quantization_tpu_torch.ops.fastpath import pack_dense_caches as t_pack
 from fp8_quantization_tpu_torch.quant import sites as tsites
 
+torch.set_num_threads(1)  # the suite's test workers share the machine's cores
+
 C_IN, C_OUT = 4, 8
 
 
@@ -67,26 +69,33 @@ def _tree(tree):
     return jax.tree.map(np.asarray, dict(tree))
 
 
-def _conv_pair(qc_args, groups, *, bn=False, rng, values="int"):
-    """A JAX conv and the port's counterpart carrying its init, both at a
-    3x3 stride-2 conv with explicit padding; the kernel and (for the plain
+# 3x3 stride 2 with explicit padding: MobileNetV2's stem and depthwise convs
+CONV_3X3 = dict(kernel_size=(3, 3), strides=(2, 2), padding=[(1, 1), (1, 0)])
+# ResNet's stem at C_IN = 3 (K = 147, not a multiple of K3's BK = 8) and its
+# strided 1x1 downsample
+CONV_STEM = dict(kernel_size=(7, 7), strides=(2, 2), padding=[(3, 3), (3, 3)])
+CONV_DOWNSAMPLE = dict(kernel_size=(1, 1), strides=(2, 2), padding=[(0, 0), (0, 0)])
+
+
+def _conv_pair(qc_args, groups, *, bn=False, rng, values="int", conv=CONV_3X3, c_in=C_IN):
+    """A JAX conv and the port's counterpart carrying its init, both at
+    ``conv``'s kernel, strides and padding; the kernel and (for the plain
     conv) bias replaced by small integers. Returns (jax module, variables,
     port module, x)."""
     jcls = jlayers.BNQuantConv if bn else jlayers.QuantConv
     tcls = tlayers.BNQuantConv if bn else tlayers.QuantConv
-    kw = dict(kernel_size=(3, 3), strides=(2, 2), padding=[(1, 1), (1, 0)],
-              feature_group_count=groups, use_bias=not bn)
+    kw = dict(conv, feature_group_count=groups, use_bias=not bn)
+    size = (2, 7, 6, c_in)
     if values == "int":
-        x = rng.integers(-3, 4, size=(2, 7, 6, C_IN)).astype(np.float32)
+        x = rng.integers(-3, 4, size=size).astype(np.float32)
     else:
         # magnitudes across many binades: some products round to zero on
         # the result grid
-        x = (rng.normal(size=(2, 7, 6, C_IN)) * np.exp2(rng.integers(-9, 3, size=(2, 7, 6, C_IN)))
-             ).astype(np.float32)
+        x = (rng.normal(size=size) * np.exp2(rng.integers(-9, 3, size=size))).astype(np.float32)
     jm = jcls(qc=_qc(jc, **qc_args), features=C_OUT, **kw)
     variables = jm.init(jax.random.key(1), jnp.asarray(x), jsites.ESTIMATE)
     params = dict(variables["params"])
-    shape = (3, 3, C_IN // groups, C_OUT)
+    shape = (*conv["kernel_size"], c_in // groups, C_OUT)
     params["kernel"] = jnp.asarray(rng.integers(-2, 3, size=shape).astype(np.float32)
                                    if values == "int" else
                                    rng.normal(size=shape).astype(np.float32))
@@ -96,7 +105,7 @@ def _conv_pair(qc_args, groups, *, bn=False, rng, values="int"):
     else:
         params["bias"] = jnp.asarray(rng.integers(-2, 3, size=C_OUT).astype(np.float32))
     variables = {**variables, "params": params}
-    tm = tcls(_qc(tc, **qc_args), C_IN, C_OUT, **kw)
+    tm = tcls(_qc(tc, **qc_args), c_in, C_OUT, **kw)
     tm.load_state_dict(from_jax_variables(_tree(variables)), strict=True)
     return jm, variables, tm, x
 
@@ -159,16 +168,21 @@ def test_grouped_quant_conv_matches_jax(groups, rng):
 
 
 @pytest.mark.parametrize("case", [
-    dict(groups=1), dict(groups=C_IN),
+    dict(groups=1), dict(groups=1, conv=CONV_STEM, c_in=3),
+    dict(groups=1, conv=CONV_DOWNSAMPLE), dict(groups=C_IN),
     dict(groups=C_IN, expo=2, mant=5, s2nn2s=True, values="grid"),
-], ids=["g1_k3", "depthwise_oracle", "depthwise_e2m5_s2nn2s"])
+], ids=["g1_k3", "stem_7x7_k147", "downsample_1x1_s2", "depthwise_oracle",
+        "depthwise_e2m5_s2nn2s"])
 def test_approx_quant_conv_matches_jax(case, rng, monkeypatch):
     """The approx run method through ESTIMATE then FIXED: g = 1 through K3's
-    plain version against JAX's Pallas kernel in interpret mode, grouped
-    convs through the port's oracle against JAX's vmapped jnp oracle (with
-    its raw-product zero mask, which the E2M5 s2nn2s case exercises)."""
+    plain version against JAX's Pallas kernel in interpret mode (at a 3x3
+    conv, at ResNet's 7x7 stem with K = 147 and at its strided 1x1
+    downsample), grouped convs through the port's oracle against JAX's
+    vmapped jnp oracle (with its raw-product zero mask, which the E2M5
+    s2nn2s case exercises)."""
     case = dict(case)
     groups, values = case.pop("groups"), case.pop("values", "int")
+    shape = dict(conv=case.pop("conv", CONV_3X3), c_in=case.pop("c_in", C_IN))
     oracle_calls = []
     real = tlayers.approx_matmul_oracle
 
@@ -178,7 +192,7 @@ def test_approx_quant_conv_matches_jax(case, rng, monkeypatch):
 
     monkeypatch.setattr(tlayers, "approx_matmul_oracle", counted)
     jm, variables, tm, x = _conv_pair(dict(approx=True, **case), groups, rng=rng,
-                                      values=values)
+                                      values=values, **shape)
     variables = _estimate(jm, variables, tm, x, jit=groups > 1)
     want = np.asarray(_apply(jm, variables, x, jsites.FIXED, jit=groups > 1))
     with torch.no_grad():

@@ -1,11 +1,12 @@
 """The port's quantized MobileNetV2 against the JAX package's, end to end at
 a small size on the CPU (``tests/test_torch_cnn_resnet.py`` holds
 ResNet-18 the same way): MobileNetV2 at width 0.25 with its
-inverted-residual table cut to ``CUT_SETTING`` (five blocks: the t = 1
-block, a block with its residual site, and the four strides of 2 that
-bring the image to 1/32 of its side before the pool; the full table's
-compiled JAX forwards take minutes on the CPU), and ResNet-18 at full
-width, both on 32x32 images, batch 2, 10 classes.
+inverted-residual table cut to ``CUT_SETTING`` (four blocks: the t = 1
+block, a block with its residual site, and three strides of 2; the full
+table's compiled JAX forwards take minutes on the CPU), and ResNet-18 at
+full width, both on 32x32 images, batch 2, 10 classes. The cut table
+shrinks the image 16-fold, so MobileNetV2 is built for 64x64 images: its
+pool window (``input_size // 32``) averages the last 2x2 map.
 
 Each model's JAX ``init`` runs its ESTIMATE forward on the calibration
 batch, so one compiled forward both draws the weights and calibrates (under
@@ -19,11 +20,12 @@ classifier, the oracle on its depthwise ones). The JAX side runs its
 approximate products through the jnp oracle (``approx_matmul_2d(...,
 allow_pallas=False)``), its plain reference on the CPU; the flagship flags
 have no s2nn2s, so no zero mask is involved. Each compiled JAX forward of
-these models takes 3–18 s on the CPU, and the tier-1 suite runs close to
-its time limit, so what the layer tests already hold is not repeated
-here: calibration with the approx run method armed is held layer by layer
+these models takes 3–16 s on the CPU, so what the layer tests already hold
+is not repeated here: calibration with the approx run method armed, and
+the approx products at ResNet's shapes (its 7x7 stem with K = 147 and its
+strided 1x1 downsample), are held layer by layer
 (``tests/test_torch_cnn_layers.py``), and ResNet-18 is held under the
-published flags only (its approx path is MobileNetV2's ungrouped one).
+published flags only.
 
 Tolerances. Every BN layer computes ``rsqrt(var + eps)``; XLA's CPU
 ``rsqrt`` is not correctly rounded and the frameworks sum convolutions in
@@ -66,6 +68,8 @@ from fp8_quantization_tpu_torch.models.resnet import ResNetSpec
 from fp8_quantization_tpu_torch.ops.cuda import KERNELS
 from fp8_quantization_tpu_torch.quant import sites as tsites
 
+torch.set_num_threads(1)  # the suite's test workers share the machine's cores
+
 SEED = 0
 SIZE, CLASSES = 32, 10
 STATE_TOL = dict(rtol=1e-5, atol=0)
@@ -87,15 +91,16 @@ def _qc(mod, approx: bool, quantize_input: bool = True):
         approx=mod.ApproxConfig(with_comp=approx, with_approx=approx))
 
 
-# MobileNetV2's (t, c, n, s) table cut to five blocks, patched into the JAX
-# and port modules alike
-CUT_SETTING = ((1, 16, 1, 1), (6, 24, 2, 2), (6, 32, 1, 2), (6, 64, 1, 2), (6, 160, 1, 2))
+# MobileNetV2's (t, c, n, s) table cut to four blocks, patched into the JAX
+# and port modules alike; the models are built for POOLED_SIZE images
+CUT_SETTING = ((1, 16, 1, 2), (6, 24, 2, 2), (6, 32, 1, 2))
+POOLED_SIZE = 2 * SIZE
 
 MODELS = {
     "mobilenet_v2": (lambda qc: JMob(qc=qc, num_classes=CLASSES, width_mult=0.25,
-                                     input_size=SIZE),
+                                     input_size=POOLED_SIZE),
                      lambda qc: TMob(qc, MobileNetV2Spec(num_classes=CLASSES, width_mult=0.25,
-                                                         image_size=SIZE))),
+                                                         image_size=POOLED_SIZE))),
     "resnet18": (lambda qc: JResNet(qc=qc, depth=18, num_classes=CLASSES),
                  lambda qc: TResNet(qc, ResNetSpec(depth=18, num_classes=CLASSES,
                                                    image_size=SIZE))),
@@ -190,9 +195,8 @@ def test_pool_site_ties_without_quantize_input():
     phase, and takes its ranges from it; without, it quantizes the last
     conv's output with range updates and the pool's output with ``FIXED``,
     so its ranges come from the conv's output alone."""
-    spec = MobileNetV2Spec(num_classes=CLASSES, width_mult=0.25, image_size=2 * SIZE)
-    calib, _ = _inputs()
-    x = torch.from_numpy(np.concatenate([calib, calib], axis=1).repeat(2, axis=2))
+    spec = MobileNetV2Spec(num_classes=CLASSES, width_mult=0.25, image_size=POOLED_SIZE)
+    x = torch.from_numpy(_inputs()[0])
     for quantize_input in (True, False):
         tm = TMob(_qc(tc, False, quantize_input), spec,
                   generator=torch.Generator().manual_seed(SEED))

@@ -1,11 +1,10 @@
 """The port's quantized ResNets against the JAX package's on the CPU:
 ResNet-18 at full width on 32x32 images, batch 2, 10 classes, calibrated
 and evaluated under the published flags as ``tests/test_torch_cnn_mobilenet.py``
-holds MobileNetV2 (its docstring gives the flow, the tolerances and why
-the approx run method is held there only); one ResNet-50
-``QuantBottleneck`` against JAX and the whole ResNet-50 built and run with
-no JAX compile; and ``validate-quantized --architecture resnet18_quantized``
-on the CPU.
+holds MobileNetV2 (its docstring gives the flow, the tolerances and where
+ResNet's approx products are held); one ResNet-50 ``QuantBottleneck``
+against JAX and the whole ResNet-50 built and run with no JAX compile; and
+``validate-quantized --architecture resnet18_quantized`` on the CPU.
 """
 
 import functools
@@ -29,6 +28,8 @@ from fp8_quantization_tpu_torch.quant import sites as tsites
 from test_torch_cnn_mobilenet import (
     CLASSES, GRID_STEP, PUBLISHED, SEED, SIZE, STATE_TOL, STEP_FRACTION, _launches, _qc,
     _tree, check_calibrate_and_evaluate)
+
+torch.set_num_threads(1)  # the suite's test workers share the machine's cores
 
 
 def test_resnet18_calibrate_and_evaluate_match_jax():

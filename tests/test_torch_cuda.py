@@ -57,6 +57,8 @@ from fp8_quantization_tpu_torch.ops.cuda import decode_attention as k6
 from fp8_quantization_tpu_torch.ops.cuda import dequant_matmul as k4
 from fp8_quantization_tpu_torch.ops.cuda import fused_matmul as k2
 
+torch.set_num_threads(1)  # the suite's test workers share the machine's cores
+
 TOL = dict(rtol=1e-6, atol=1e-6)
 
 # the eight flag cases of tests/test_approx_pallas.py, as the wrapper's keywords

@@ -34,6 +34,8 @@ from fp8_quantization_tpu_torch.ops.cuda import dequant_matmul as k4
 from fp8_quantization_tpu_torch.ops.cuda import fused_matmul as k2
 from test_torch_cuda import k1_inputs, ste_weights
 
+torch.set_num_threads(1)  # the suite's test workers share the machine's cores
+
 FORMATS = [(3, 4), (4, 3), (2, 5)]
 # biases of ordinary grids, a negative one, and the saturated +inf bias of a
 # site that saw only zeros (its int32 arithmetic wraps)

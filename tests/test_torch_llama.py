@@ -52,6 +52,8 @@ from fp8_quantization_tpu_torch.models.llama import (
 from fp8_quantization_tpu_torch.models.serving import calibrate_llama, pack_llama
 from fp8_quantization_tpu_torch.quant.sites import FIXED, QuantPhase
 
+torch.set_num_threads(1)  # the suite's test workers share the machine's cores
+
 SEED = 10
 SPEC = dict(vocab_size=64, hidden_size=32, num_layers=2, num_heads=4, num_kv_heads=2,
             mlp_dim=64, max_seq_len=48)

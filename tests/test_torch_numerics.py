@@ -22,6 +22,8 @@ from fp8_quantization_tpu_torch.numerics import formats as tformats
 from fp8_quantization_tpu_torch.numerics import luts as tluts
 from fp8_quantization_tpu_torch.numerics import rounding as tround
 
+torch.set_num_threads(1)  # the suite's test workers share the machine's cores
+
 
 def _edge_values(rng, n=512, scale=3.0):
     """Random normals plus zero, signed zero, f32 subnormals, tiny normals and

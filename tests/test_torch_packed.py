@@ -47,6 +47,8 @@ from fp8_quantization_tpu_torch.ops.layers import QuantDense as TDense
 from fp8_quantization_tpu_torch.quant import sites as tsites
 from test_torch_vit import LOGIT_TOL, SEED, TINY, _jax_init, _numpy_tree, _qc
 
+torch.set_num_threads(1)  # the suite's test workers share the machine's cores
+
 MODES = ["fast", "packed", "chained"]
 J_PHASE = {"fast": jsites.FAST, "packed": jsites.PACKED, "chained": jsites.CHAINED}
 T_PHASE = {"fast": tsites.FAST, "packed": tsites.PACKED, "chained": tsites.CHAINED}

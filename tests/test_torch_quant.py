@@ -26,6 +26,8 @@ from fp8_quantization_tpu_torch.quant import estimators as test_
 from fp8_quantization_tpu_torch.quant import quantizers as tq
 from fp8_quantization_tpu_torch.quant import sites as tsites
 
+torch.set_num_threads(1)  # the suite's test workers share the machine's cores
+
 IMAGE_NET_SH = [
     "validate-quantized", "--synthetic-data", "--architecture", "vit_quantized",
     "--batch-size", "16", "--seed", "10", "--n-bits", "8", "--load-type", "fp32",

@@ -28,6 +28,8 @@ from fp8_quantization_tpu_torch.models.llama import LlamaSpec
 from fp8_quantization_tpu_torch.models.serving import ContinuousBatcher, _pad_to_bucket
 from fp8_quantization_tpu_torch.quant.sites import FIXED
 
+torch.set_num_threads(1)  # the suite's test workers share the machine's cores
+
 # tests/test_llama.py::test_continuous_batcher's prompts and token budgets
 PROMPTS = [([1, 2, 3, 4, 5], 6), ([7, 8, 9], 4)]
 REUSE = ([11, 12], 3)

@@ -61,6 +61,8 @@ from fp8_quantization_tpu_torch.ops.layers import QuantDense as TDense
 from fp8_quantization_tpu_torch.quant import quantizers as tq
 from fp8_quantization_tpu_torch.quant import sites as tsites
 
+torch.set_num_threads(1)  # the suite's test workers share the machine's cores
+
 SEED = 10
 STATE_TOL = dict(rtol=1e-6, atol=1e-6)
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)

@@ -46,6 +46,8 @@ from fp8_quantization_tpu_torch.models.vit import ViTSpec as TSpec
 from fp8_quantization_tpu_torch.ops.cuda import approx_matmul as k3
 from fp8_quantization_tpu_torch.quant.sites import FIXED
 
+torch.set_num_threads(1)  # the suite's test workers share the machine's cores
+
 SEED = 2
 TINY = dict(hidden_size=32, num_layers=2, num_heads=4, mlp_dim=64, patch_size=8,
             image_size=32, num_classes=10)
