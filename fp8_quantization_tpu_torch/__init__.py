@@ -8,5 +8,3 @@ first use (``ops/cuda``), so importing it needs no GPU and no compiler.
 
 # the end of every NotImplementedError raised for what this slice has not ported
 LATER = "is not ported yet: it belongs to a later slice of the port"
-# the same for the CNN slice (grouped convs, BN folding, int8 conv serving)
-LATER_CNN = "is not ported yet: it belongs to a later slice of the port, the CNN slice"

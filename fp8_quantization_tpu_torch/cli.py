@@ -11,8 +11,9 @@ The port runs ``vit_quantized``, ``mobilenet_v2_quantized``,
 ``resnet18_quantized``, ``resnet50_quantized`` and their ``_approx`` twins
 on seeded random weights and synthetic data, in the fixed phase (with
 ``--reestimate-bn-batches`` for the CNNs' BN) and in the serving modes
-``--fast-mode`` and ``--packed-weights``; ``--chained-acts`` on the ViT
-only. ``demo_quantized``, checkpoints and the ImageNet loaders raise.
+``--fast-mode``, ``--packed-weights`` and ``--chained-acts``, with the FP
+quantizer and with the uniform ones (int8 and int4 conv and dense serving).
+``demo_quantized``, checkpoints and the ImageNet loaders raise.
 ``--cuda`` (the default) runs on the GPU and raises when there is none;
 ``--no-cuda`` runs on the CPU.
 """
@@ -28,7 +29,6 @@ import time
 import torch
 
 from . import LATER as _LATER
-from . import LATER_CNN
 from .config import (
     ApproxConfig,
     EstimatorConfig,
@@ -235,10 +235,6 @@ def select_device(use_cuda: bool) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
-# the CNN architectures (BN after every conv, no attention)
-CNN_ARCHS = ("mobilenet_v2_quantized", "resnet18_quantized", "resnet50_quantized")
-
-
 def build_model(arch: str, qc: QuantConfig, device, generator, spec=None):
     """(model on ``device``, zeros example batch of one). ``spec`` defaults to
     the architecture's full size (ViT-B/16, MobileNetV2 1.0 at 224,
@@ -275,10 +271,6 @@ def _reject_unported(args):
     for flag, given in unported.items():
         if given:
             raise NotImplementedError(f"{flag} {_LATER}")
-    if args.chained_acts and args.architecture.replace("_approx", "") in CNN_ARCHS:
-        # BN under chained serving leaves as a pending Affine
-        raise NotImplementedError(f"--chained-acts on a CNN (the fused Affine boundary) "
-                                  f"{LATER_CNN}")
 
 
 def sync(device: torch.device):
@@ -300,14 +292,6 @@ def setup(args):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     qc = config_from_args(args)
-    if args.packed_weights:
-        from .ops.fastpath import int8_conv_codes
-
-        if int8_conv_codes(qc):
-            # every conv would take int8 codes
-            raise NotImplementedError(
-                "--packed-weights with a per-tensor uniform act quantizer on quantized "
-                f"inputs (int8 conv serving, quantized_conv_int8) {LATER_CNN}")
     generator = torch.Generator().manual_seed(args.seed or 0)
     model, example = build_model(args.architecture, qc, device, generator)
     # the JAX CLI initializes its variables with an ESTIMATE-phase forward of

@@ -53,6 +53,41 @@ def quantize_to_fp8_ste(x_float, n_bits: int, maxval, mantissa_bits, sign_bits):
     return result, bias
 
 
+def quantize_to_fp8_ste_affine(x_raw, a_scale, a_bias, lo, hi, n_bits: int, maxval,
+                               mantissa_bits, sign_bits):
+    """A pending per-channel affine and clamp folded into the FP8
+    fake-quantize: equal to ``quantize_to_fp8_ste(clip(x_raw * a_scale +
+    a_bias, lo, hi), ...)`` with the clamp merged into the quantizer's own
+    ``[minval, maxval]`` clip, which is exact wherever the two intervals
+    overlap (every clamp of ``ops.activations.CLAMP_ACTIVATIONS``).
+    ``a_scale`` / ``a_bias`` broadcast on the last axis; ``maxval`` is the
+    per-tensor ``(1,)`` state. ``x_raw * a_scale`` and ``+ a_bias`` round
+    apart in f32."""
+    x_raw = torch.as_tensor(x_raw).to(torch.float32)
+    dev = x_raw.device
+    maxval = torch.as_tensor(maxval, dtype=torch.float32, device=dev)
+    mantissa_bits = torch.as_tensor(mantissa_bits, dtype=torch.float32, device=dev)
+    sign_b = torch.as_tensor(sign_bits, device=dev).to(torch.float32)
+
+    M = torch.minimum(torch.clamp(round_ste(mantissa_bits), min=1.0), n_bits - sign_b)
+    E = n_bits - sign_b - M
+    bias = torch.round(2.0 ** E - torch.log2(maxval) + torch.log2(2 - 2.0 ** (-M)) - 1)
+
+    minval = torch.where(sign_b == 1, -maxval, torch.zeros_like(maxval))
+    lo_eff = minval if lo is None else torch.clamp(minval, min=lo)
+    hi_eff = maxval if hi is None else torch.clamp(maxval, max=hi)
+
+    v = x_raw * a_scale.to(torch.float32) + a_bias.to(torch.float32)
+    xc = torch.minimum(torch.maximum(v, lo_eff), hi_eff)
+
+    bits = xc.detach().contiguous().view(torch.int32)
+    e_ieee = (torch.bitwise_right_shift(bits, 23) & 0xFF) - 127
+    log_scales = torch.clamp(e_ieee.to(bias.dtype) + bias, min=1.0)
+    scales = exp2_exact(log_scales - M - bias)
+    result = round_ste(xc / scales) * scales
+    return result, bias
+
+
 def default_maxval(n_bits: int, mantissa_bits: int) -> float:
     """Default signed maxval ``(2 - 2^-M) * 2^(2^E - 1 - default_bias)``."""
     ebits = n_bits - mantissa_bits - 1

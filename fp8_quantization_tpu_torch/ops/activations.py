@@ -1,5 +1,5 @@
 """Fusable activation registry (port of ``ops/activations.py``): plain torch
-callables keyed by name."""
+callables keyed by name, and the pure-clamp ones' bounds."""
 
 from __future__ import annotations
 
@@ -54,3 +54,13 @@ def get_activation(name: Optional[str]) -> Optional[Callable]:
     if name is None:
         return None
     return ACTIVATIONS[name]
+
+
+# pure-clamp activations, keyed by function object: their (lo, hi) bounds
+# fold exactly into a pending Affine and the next act site's clip (the
+# fused serving boundary, ``quant.sites.Affine``)
+CLAMP_ACTIVATIONS = {
+    torch.relu: (0.0, None),
+    relu6: (0.0, 6.0),
+    hardtanh: (-1.0, 1.0),
+}

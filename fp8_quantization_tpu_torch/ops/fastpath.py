@@ -15,8 +15,12 @@ dense layer's weights as int8 codes (``w_i8*``) or, at 4 bits or fewer, as
 nibble pairs (``w_i4*``, :func:`pack_int4`); ``quantize_acts_int8`` turns
 the input into int8 codes on the act site's grid; the product sums exactly
 in int32 (:func:`int8_matmul`, or the nibble GEMM K5 for ``w_i4``) and
-``quantized_matmul_int8`` scales it back. The int8 convolution and the
-``Affine`` boundary belong to the CNN slice.
+``quantized_matmul_int8`` scales it back. A conv layer whose input a
+per-tensor uniform act site quantizes keeps kernel-shaped ``w_i8`` codes
+(or flattened ``w_i4`` nibbles) and runs :func:`quantized_conv_int8`, whose
+int32 sums come from :func:`int8_conv_sums`; under ``chained`` its result
+leaves as a pending ``quant.sites.Affine`` (:func:`quantize_acts_affine`
+folds it into the next act site).
 """
 
 from __future__ import annotations
@@ -26,7 +30,6 @@ from typing import NamedTuple, Optional
 import torch
 
 from .. import LATER as _LATER
-from .. import LATER_CNN
 from ..config import QMethod, QuantConfig
 from ..numerics.rounding import to_int32
 from ..quant import quantizers
@@ -153,7 +156,10 @@ def int8_matmul(x_codes, w_codes):
     package's ``jnp.dot(..., preferred_element_type=int32)``: on the CPU an
     int32 matmul; on the card ``torch._int_mm``, whose operands need more
     than 16 rows and K, N multiples of 8, so the codes are padded with zero
-    rows and columns (which add nothing) and the result sliced back."""
+    rows and columns (which add nothing) and the result sliced back. The
+    weights go in column-major: cuBLASLt's int8 tensor-core GEMM takes only
+    that layout beside row-major x (its "TN" format), and with both
+    row-major it finds no kernel at some shapes (K = 16 or 64 at 72 rows)."""
     if x_codes.device.type == "cpu":
         return x_codes.to(torch.int32) @ w_codes.to(torch.int32)
     m, k = x_codes.shape
@@ -161,7 +167,7 @@ def int8_matmul(x_codes, w_codes):
     mp, kp, np_ = max(32, -(-m // 8) * 8), -(-k // 8) * 8, -(-n // 8) * 8
     xp = torch.nn.functional.pad(x_codes, (0, kp - k, 0, mp - m))
     wp = torch.nn.functional.pad(w_codes, (0, np_ - n, 0, kp - k))
-    return torch._int_mm(xp, wp.contiguous())[:m, :n]
+    return torch._int_mm(xp, wp.t().contiguous().t())[:m, :n]
 
 
 def quantized_matmul_int8(x_codes, w: Int8Weights, sx, cx, *, bias=None,
@@ -190,20 +196,119 @@ def quantized_matmul_int8(x_codes, w: Int8Weights, sx, cx, *, bias=None,
     return out.to(out_dtype)
 
 
-def quantize_acts_affine(*args, **kwargs):
-    """:func:`quantize_acts_int8` over a pending ``Affine`` input."""
-    raise NotImplementedError(f"quantize_acts_affine (fused CNN serving boundaries) {LATER_CNN}")
+def quantize_acts_affine(aff, scale, zero_point, int_min, int_max):
+    """:func:`quantize_acts_int8` over a pending ``Affine`` input: the
+    producer's dequant, BN and clamp fold into this site's quantization
+    (``quant.sites.fold_quantize_affine``); the same ``(codes, c_x)``."""
+    from ..quant.sites import fold_quantize_affine
+
+    x_int = fold_quantize_affine(aff, scale, zero_point, int_min, int_max)
+    shift = torch.where(int_min < 0, 0.0, 128.0)
+    return (x_int - shift).to(torch.int8), zero_point - shift
 
 
-def quantized_conv_int8(*args, **kwargs):
-    """The int8 convolution of uniform conv serving."""
-    raise NotImplementedError(f"quantized_conv_int8 (int8 conv serving) {LATER_CNN}")
+def int8_conv_sums(x_codes, w_codes, cx, *, strides, padding, dilation, groups: int = 1,
+                   with_xsum: bool = False):
+    """The exact int32 sums of a convolution of int8 codes: x (B, H, W, I),
+    w (kh, kw, I/g, O), padding filled with the zero point's code ``cx``
+    (so a padded tap is exactly the value 0). Returns ``(acc, xsum)``: acc
+    (B, Ho, Wo, O) int32, and with ``with_xsum`` each group's window sum of
+    the padded codes (B, Ho, Wo, g), the zero-point term of weights with a
+    zero point (else None). The JAX package sums in ``lax.conv`` on int8
+    operands into int32; PyTorch has no such convolution on CUDA, so:
+
+    * ungrouped: im2col of the codes (``layers.conv_patches``) times the
+      flattened kernel through :func:`int8_matmul` (``torch._int_mm`` on the
+      card);
+    * grouped and depthwise: an int32 multiply-and-sum over the taps and
+      each group's input channels, exact for any kernel.
+
+    Integer sums are exact in any order, so every device gives the same."""
+    from .layers import conv_patches, conv_taps
+
+    kh, kw, ipg, o = w_codes.shape
+    fill = cx.to(torch.int8)
+    if groups == 1:
+        patches = conv_patches(x_codes, w_codes.shape, strides, padding, dilation, fill)
+        lead = patches.shape[:-1]
+        acc = int8_matmul(patches.reshape(-1, patches.shape[-1]), w_codes.reshape(-1, o))
+        xsum = (torch.sum(patches, dim=-1, keepdim=True, dtype=torch.int32)
+                if with_xsum else None)
+        return acc.reshape(*lead, o), xsum
+    og = o // groups
+    taps = conv_taps(x_codes.to(torch.int32), (kh, kw), strides, padding, dilation, fill)
+    b, ho, wo, _ = taps[0].shape
+    w = w_codes.reshape(kh * kw, ipg, groups, og).to(torch.int32)
+    acc = torch.zeros((b, ho, wo, groups, og), dtype=torch.int32, device=x_codes.device)
+    xsum = (torch.zeros((b, ho, wo, groups), dtype=torch.int32, device=x_codes.device)
+            if with_xsum else None)
+    for t, tap in enumerate(taps):
+        tap = tap.reshape(b, ho, wo, groups, ipg)
+        for c in range(ipg):
+            acc += tap[..., c, None] * w[t, c]
+        if with_xsum:
+            xsum += torch.sum(tap, dim=-1, dtype=torch.int32)
+    return acc.reshape(b, ho, wo, o), xsum
+
+
+def quantized_conv_int8(x_codes, w_codes, sx, scale, cx, wsum, *, strides, padding,
+                        dilation, groups: int = 1, zp=None, bias=None,
+                        out_dtype=torch.float32, as_affine: bool = False):
+    """The int8 convolution of uniform conv serving: the codes' exact int32
+    sums (:func:`int8_conv_sums`, padding filled with the ``cx`` code), then
+    one f32 epilogue with the zero points unfolded as rank-1 terms:
+
+      out = sx * sw_o * [acc - cx * Wsum_o - cw_o * Xsum + K * cx * cw_o]
+
+    in the JAX package's op order. ``zp`` is the per-output-channel weight
+    zero point in [0, 255] coordinates (``cw = zp - 128``), None for signed
+    symmetric weights (the Xsum term is then skipped). x_codes (B, H, W, I)
+    int8; w_codes (kh, kw, I/g, O) int8; scale (O,) f32; cx () f32,
+    integer-valued; wsum (O,) int32.
+
+    ``as_affine`` (fused-boundary serving): return a pending
+    ``quant.sites.Affine`` instead, the epilogue's constants folded into
+    per-channel ``scale`` / ``bias`` and only the int32-to-f32 cast (and the
+    Xsum term) done on the elements; BN, the clamp and the next act site
+    fold on top."""
+    acc, xsum = int8_conv_sums(x_codes, w_codes, cx, strides=strides, padding=padding,
+                               dilation=dilation, groups=groups, with_xsum=zp is not None)
+
+    def xsum_term():
+        kh, kw, ipg, o = w_codes.shape
+        cw = zp - 128.0
+        xs = torch.repeat_interleave(xsum.to(torch.float32), o // groups, dim=-1) * cw
+        return xs, (kh * kw * ipg * cx) * cw
+
+    if as_affine:
+        from ..quant.sites import Affine
+
+        x_t = acc.to(torch.float32)
+        sc = sx * scale
+        b = -(cx * wsum.to(torch.float32)) * sc
+        if zp is not None:
+            xs, const = xsum_term()
+            x_t = x_t - xs
+            b = b + const * sc
+        if bias is not None:
+            b = b + bias
+        return Affine(x_t, sc, b)
+    out = acc.to(torch.float32) - cx * wsum.to(torch.float32)
+    if zp is not None:
+        xs, const = xsum_term()
+        out = out - xs
+        out = out + const
+    out = out * (sx * scale)
+    if bias is not None:
+        out = out + bias
+    return out.to(out_dtype)
 
 
 def int8_conv_codes(qc: QuantConfig) -> bool:
-    """Whether uniform packing gives a conv layer int8 codes: its input is
-    quantized by a per-tensor uniform act site (the JAX package then serves
-    it with ``quantized_conv_int8``, which belongs to the CNN slice)."""
+    """Whether uniform packing gives a conv layer integer codes: its input
+    is quantized by a per-tensor uniform act site, whose int8 codes feed
+    :func:`quantized_conv_int8`. Other conv layers keep their simulated
+    path (and their kernel)."""
     acfg = qc.act_quantizer()
     return (qc.weight_quantizer().method != QMethod.fp_quantizer
             and acfg.method != QMethod.fp_quantizer and not acfg.per_channel
@@ -230,9 +335,9 @@ def pack_dense_caches(model, qc: QuantConfig, n_bits_w: Optional[int] = None):
     * uniform quantizers (n_bits <= 8): ``w_i8``, ``w_i8_scale``,
       ``w_i8_sum`` and, where some channel has a nonzero zero point,
       ``w_i8_zp``; at 4 bits or fewer the ``w_i4*`` keys, with the codes
-      nibble-packed (:func:`pack_int4`). A conv layer whose input a uniform
-      act site quantizes would take int8 codes too; that path belongs to
-      the CNN slice and raises.
+      nibble-packed (:func:`pack_int4`); conv kernels are coded in the
+      flattened ``(prod(K)*I, O)`` layout, ``w_i8`` reshaped back to the
+      kernel's, and only where :func:`int8_conv_codes` holds.
 
     Updates ``model`` in place and returns ``(model, report)``: ``report``
     maps layer names to the fraction of channels packed bit-exactly (always
@@ -247,11 +352,8 @@ def pack_dense_caches(model, qc: QuantConfig, n_bits_w: Optional[int] = None):
             continue
         # the layer's own weight n_bits, recorded at cache time
         n_bits = int(layer.w_nbits[0]) if layer.w_nbits is not None else wq_cfg.n_bits
-        if w_q.ndim > 2 and not is_fp:
-            if not int8_conv_codes(qc) or n_bits > 8:
-                continue  # the conv keeps its simulated path
-            raise NotImplementedError(f"int8 codes of the uniform conv layer {name!r} "
-                                      f"(quantized_conv_int8) {LATER_CNN}")
+        if w_q.ndim > 2 and not is_fp and not int8_conv_codes(qc):
+            continue  # the conv keeps its simulated path
         pack = _pack_fp if is_fp else _pack_uniform
         exact = pack(layer, wq_cfg, n_bits)
         if exact is not None:
@@ -281,8 +383,8 @@ def _pack_fp(layer, wq_cfg, n_bits: int) -> Optional[float]:
 
 
 def _pack_uniform(layer, wq_cfg, n_bits: int) -> Optional[float]:
-    """The uniform branch of :func:`pack_dense_caches` for one (2-D) layer,
-    in the JAX package's arithmetic; returns the fraction of channels whose
+    """The uniform branch of :func:`pack_dense_caches` for one layer (a
+    conv kernel in its flattened layout), in the JAX package's arithmetic; returns the fraction of channels whose
     codes give the cached weights back exactly, or None when the layer stays
     unpacked. Every step is per column, so the codes are made a slice of
     columns at a time (``PACK_CHUNK_ELEMENTS``) and a full-width ``lm_head``
@@ -292,7 +394,7 @@ def _pack_uniform(layer, wq_cfg, n_bits: int) -> Optional[float]:
     if n_bits > 8:
         return None
     site = layer.weight_quantizer
-    w2 = layer.w_q
+    w2 = layer.w_q.reshape(-1, layer.w_q.shape[-1])
     k, n = w2.shape
     scale = quantizers.uniform_scale(wq_cfg, site.delta.to(torch.float32)).expand(n).contiguous()
     if wq_cfg.method == QMethod.symmetric_uniform:
@@ -314,6 +416,8 @@ def _pack_uniform(layer, wq_cfg, n_bits: int) -> Optional[float]:
         wsum.append(torch.sum(cc, dim=0, dtype=torch.int32))
         codes.append(pack_int4(cc) if nibbles else cc)
     codes, wsum = torch.cat(codes, dim=1), torch.cat(wsum)
+    if not nibbles:
+        codes = codes.reshape(layer.w_q.shape)  # conv layers keep kernel-shaped codes
     # stored zero point in shifted coordinates, c_w = zp - 128 (0 for signed
     # symmetric), installed only where some channel needs it
     zp_st = zp_q + (128.0 - shift)

@@ -32,11 +32,19 @@ layers through ``ops.fastpath.quantized_matmul``, the K2 kernel); under
 ``CodedFP`` input under ``chained``, and a conv decodes its codes and
 convolves. A dense layer with uniform codes quantizes its input to int8
 codes and sums the integer product exactly (the K5 nibble GEMM for
-``w_i4``), with ``Coded`` int8 output under ``chained``.
+``w_i4``), with ``Coded`` int8 output under ``chained``; a conv with uniform
+codes does the same through ``fastpath.quantized_conv_int8``.
+
+The fused boundary (``chained`` on the CNNs): BN leaves a conv as a pending
+``quant.sites.Affine`` (an int8 conv's epilogue too), a pure-clamp
+activation sets its bounds, and the next layer's act site folds the whole
+chain into its own quantization; whatever else meets an ``Affine``
+materializes it with ``decoded``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import math
 from typing import Callable, Optional, Sequence, Tuple, Union
@@ -46,16 +54,19 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import LATER as _LATER
-from .. import LATER_CNN
 from ..config import ApproxConfig, EstimatorConfig, QMethod, QuantConfig
 from ..numerics.approx_matmul import approx_products
 from ..numerics.codec import unpack_exmy
 from ..numerics.luts import get_error_table
-from ..quant.sites import FIXED, QuantPhase, QuantSite, codes_eligible, coded_shape, decoded
+from ..quant.sites import (FIXED, Affine, QuantPhase, QuantSite, codes_eligible, coded_shape,
+                           decoded)
+from . import fastpath
+from .activations import CLAMP_ACTIVATIONS
 from .cuda import approx_matmul as k3
 from .cuda import dequant_matmul as k4
 from .cuda.dequant_matmul import PackedWeights
-from .fastpath import Int8Weights, quantize_acts_int8, quantized_matmul, quantized_matmul_int8
+from .fastpath import (Int8Weights, quantize_acts_affine, quantize_acts_int8, quantized_matmul,
+                       quantized_matmul_int8, unpack_int4)
 
 # the weight cache of a dense or conv layer, named as the flax quant_cache
 CACHE_KEYS = ("w_q", "w_bias", "w_nbits", "w_codes", "w_pack_bias",
@@ -198,6 +209,13 @@ class _QuantOpBase(nn.Module):
             x, a_bias = self.activation_quantizer(x, qp, with_bias=True)
         return x, a_bias
 
+    def _defer_affine(self, x, qp: QuantPhase):
+        """Keep a pending :class:`Affine` input as it is when this layer's
+        input act site will fold it; materialize anything else coded."""
+        if isinstance(x, Affine) and self.qc.quantize_input and qp.quant_a:
+            return x
+        return decoded(x)
+
     def _quant_weight(self, kernel, qp: QuantPhase):
         if not qp.quant_w:
             return kernel, None
@@ -275,9 +293,16 @@ class _QuantOpBase(nn.Module):
 
     def _tail(self, res, qp: QuantPhase):
         if self.activation is not None:
-            # a bf16 or coded result holds grid values; the activation runs
-            # in f32 as in the fixed phase
-            res = self.activation(decoded(res).to(torch.float32))
+            clamp = CLAMP_ACTIVATIONS.get(self.activation)
+            if (isinstance(res, Affine) and clamp is not None
+                    and res.lo is None and res.hi is None):
+                # fused boundary: a pure clamp sets the pending bounds, which
+                # merge exactly into the next act site's clip
+                res = res.with_clamp(*clamp)
+            else:
+                # a bf16 or coded result holds grid values; the activation
+                # runs in f32 as in the fixed phase
+                res = self.activation(decoded(res).to(torch.float32))
         if not self.qc.quantize_input and qp.quant_a and self.quantize_output:
             res = self.activation_quantizer(res, qp)
         return res
@@ -322,8 +347,7 @@ class QuantDense(_QuantOpBase):
         pw = self._packed_weights(qp)
         if pw is not None:
             return self._packed_body(x, pw, qp)
-        x = decoded(x)
-        x, a_bias = self._quant_in(x, qp)
+        x, a_bias = self._quant_in(self._defer_affine(x, qp), qp)
         w, w_bias = self._quant_weight(self.kernel, qp)
 
         res = None
@@ -354,7 +378,7 @@ class QuantDense(_QuantOpBase):
             x2d = xa.codes.reshape(-1, k_in)
             xkw = dict(x_bias=xa.bias, x_expo=xa.expo_width, x_mant=xa.mant_width)
         else:
-            x, _ = self._quant_in(decoded(x), qp)
+            x, _ = self._quant_in(self._defer_affine(x, qp), qp)
             x2d = x.reshape(-1, k_in).to(torch.bfloat16)
             xkw = {}
         out2d = k4.dequant_matmul(x2d, pw.codes, pw.bias, expo_width=pw.expo_width,
@@ -421,19 +445,36 @@ def _pad_nchw(x, pads):
     return F.pad(x, flat)
 
 
-def conv_patches(x, kernel_shape, strides, padding, dilation):
-    """im2col of an NHWC batch: (B, Ho, Wo, kh*kw*I) patches whose last dim
-    is ordered (*K, I), matching a (*K, I, O) kernel reshaped to
-    ``(prod(K)*I, O)``."""
-    kh, kw, in_ch, _ = kernel_shape
-    pads = _explicit_padding(x.shape[1:3], (kh, kw), strides, dilation, padding)
-    xp = _pad_nchw(x.permute(0, 3, 1, 2), pads)
-    cols = F.unfold(xp, (kh, kw), dilation=dilation, stride=strides)  # (B, I*kh*kw, L)
-    b, _, length = cols.shape
-    ho = (xp.shape[2] - dilation[0] * (kh - 1) - 1) // strides[0] + 1
-    wo = (xp.shape[3] - dilation[1] * (kw - 1) - 1) // strides[1] + 1
-    cols = cols.reshape(b, in_ch, kh * kw, length).permute(0, 3, 2, 1)
-    return cols.reshape(b, ho, wo, kh * kw * in_ch)
+def conv_taps(x, kernel_size, strides, padding, dilation, fill=None):
+    """The ``kh * kw`` taps of a convolution over an NHWC batch of any
+    dtype, in (kh, kw) order: tap (i, j) is the (B, Ho, Wo, I) strided view
+    of the padded input at each output's window position (i, j). Padding
+    is filled with ``fill`` (a 0-dim tensor, such as the zero point's int8
+    code) or with zeros."""
+    kh, kw = kernel_size
+    (t, bo), (le, ri) = _explicit_padding(x.shape[1:3], kernel_size, strides, dilation, padding)
+    if min(t, bo, le, ri) < 0:
+        raise ValueError(f"negative padding {padding!r}")
+    if t or bo or le or ri:
+        b, h, w, c = x.shape
+        shape = (b, h + t + bo, w + le + ri, c)
+        xp = x.new_zeros(shape) if fill is None else fill.to(x.dtype).expand(shape).clone()
+        xp[:, t:t + h, le:le + w] = x
+        x = xp
+    (sh, sw), (dh, dw) = strides, dilation
+    ho = (x.shape[1] - dh * (kh - 1) - 1) // sh + 1
+    wo = (x.shape[2] - dw * (kw - 1) - 1) // sw + 1
+    return [x[:, i * dh:i * dh + (ho - 1) * sh + 1:sh, j * dw:j * dw + (wo - 1) * sw + 1:sw]
+            for i in range(kh) for j in range(kw)]
+
+
+def conv_patches(x, kernel_shape, strides, padding, dilation, fill=None):
+    """im2col of an NHWC batch of any dtype: (B, Ho, Wo, kh*kw*I) patches
+    whose last dim is ordered (*K, I), matching a (*K, I, O) kernel
+    reshaped to ``(prod(K)*I, O)``; padding as :func:`conv_taps`."""
+    taps = conv_taps(x, kernel_shape[:2], strides, padding, dilation, fill)
+    b, ho, wo, in_ch = taps[0].shape
+    return torch.stack(taps, dim=3).reshape(b, ho, wo, len(taps) * in_ch)
 
 
 class QuantConv(_QuantOpBase):
@@ -474,10 +515,61 @@ class QuantConv(_QuantOpBase):
     def forward(self, x, qp: QuantPhase = FIXED):
         return self._tail(self._conv_body(x, qp), qp)
 
+    def _conv_int8(self, x, qp: QuantPhase):
+        """Integer conv serving of uniform quantizers, or None where the
+        layer has no integer codes or its act site is not frozen per-tensor
+        uniform. The input (a pending :class:`Affine` folded by
+        ``quantize_acts_affine``, or values) becomes int8 codes on this
+        layer's act grid, and ``fastpath.quantized_conv_int8`` sums them
+        exactly against the ``w_i8`` codes (or the unpacked ``w_i4``
+        nibbles). Under ``chained`` the result leaves as an ``Affine`` (BN
+        and the clamp fold onto it); its res site, where there is one, folds
+        it too and stays an ``Affine`` ahead of BN, else emits ``Coded``.
+        Returns the pre-BN result."""
+        if not (qp.packed and qp.quant_w and qp.quant_a and not qp.estimating
+                and self.qc.quantize_input and not self._special_armed()):
+            return None
+        acfg = self.qc.act_quantizer(self.n_bits_act)
+        if acfg.method == QMethod.fp_quantizer or acfg.per_channel:
+            return None
+        if self.w_i8 is None and self.w_i4 is None:
+            return None
+        in_ch = coded_shape(x)[-1]
+        kernel_shape = (*self.kernel_size, in_ch // self.groups, self.features)
+        s, zp, lo, hi = self.activation_quantizer.uniform_int_params()
+        if isinstance(x, Affine):
+            codes, cx = quantize_acts_affine(x, s[0], zp[0], lo[0], hi[0])
+        else:
+            codes, cx = quantize_acts_int8(decoded(x).to(torch.float32), s[0], zp[0], lo[0],
+                                           hi[0])
+        if self.w_i4 is not None:
+            w_codes = unpack_int4(self.w_i4, math.prod(kernel_shape[:-1])).reshape(kernel_shape)
+            scale, zp_w, wsum = self.w_i4_scale, self.w_i4_zp, self.w_i4_sum
+        else:
+            w_codes, scale, zp_w, wsum = self.w_i8, self.w_i8_scale, self.w_i8_zp, self.w_i8_sum
+        res = fastpath.quantized_conv_int8(
+            codes, w_codes, s[0], scale, cx, wsum, strides=self.strides, padding=self.padding,
+            dilation=self.dilation, groups=self.groups, zp=zp_w, as_affine=qp.chained)
+        if self.bias is not None:
+            res = (dataclasses.replace(res, bias=res.bias + self.bias)
+                   if isinstance(res, Affine) else res + self.bias)
+        if self.res_quantizer is not None:
+            if isinstance(res, Affine) and self.bn_follows:
+                res = self.res_quantizer(res, qp, as_affine=True)
+            else:
+                as_codes = codes_eligible(acfg, qp) and (isinstance(res, Affine)
+                                                         or not self.bn_follows)
+                res = self.res_quantizer(res, qp, as_codes=as_codes)
+        return res
+
     def _conv_body(self, x, qp: QuantPhase):
-        x = decoded(x)
+        res = self._conv_int8(x, qp)
+        if res is not None:
+            return res
+        # a pending Affine stays pending where the act site folds it
+        x = self._defer_affine(x, qp)
         g = self.groups
-        in_ch = x.shape[-1]
+        in_ch = coded_shape(x)[-1]
         kernel_shape = (*self.kernel_size, in_ch // g, self.features)
         pw = self._packed_weights(qp)
         x, a_bias = self._quant_in(x, qp)
@@ -562,10 +654,17 @@ def _unfolded_bn(module, res, qp: QuantPhase, epsilon: float):
     """Unfolded f32 BN over all axes but the channel's. Under
     ``reestimate_bn`` it normalizes with the batch's (biased) stats and
     stores their mean and unbiased variance in the running buffers
-    (momentum-1 train-mode BN)."""
-    if qp.chained:
-        raise NotImplementedError(
-            f"BN under chained serving (the fused Affine boundary) {LATER_CNN}")
+    (momentum-1 train-mode BN). Under ``chained`` (or on a pending
+    :class:`Affine`) inference BN is a per-channel affine: it folds onto the
+    pending one, or leaves the result as a new ``Affine``, with no pass over
+    the elements (equal to the unfolded BN up to f32 rounding of the folded
+    constants)."""
+    if not qp.reestimate_bn and (isinstance(res, Affine) or qp.chained):
+        rg = torch.rsqrt(module.var + epsilon) * module.gamma
+        rb = module.beta - module.mean * rg
+        if isinstance(res, Affine):
+            return res.then_affine(rg, rb)
+        return Affine(decoded(res), rg, rb)
     res = decoded(res).to(torch.float32)
     if qp.reestimate_bn:
         dims = tuple(range(res.ndim - 1))

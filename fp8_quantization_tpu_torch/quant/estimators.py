@@ -1,6 +1,6 @@
 """Range estimators as state-update functions (port of
-``quant/estimators.py``: ``current_minmax`` and ``allminmax``; the others
-belong to a later slice).
+``quant/estimators.py``: ``current_minmax``, ``allminmax`` and
+``running_minmax``; the others belong to a later slice).
 
 ``update`` returns ``(state, ranges)`` with ranges ``(x_min, x_max, None)``.
 """
@@ -17,7 +17,7 @@ from ..config import EstimatorConfig, QuantizerConfig, RangeMethod
 EstState = Dict[str, torch.Tensor]
 Ranges = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]
 
-_PORTED = (RangeMethod.current_minmax, RangeMethod.allminmax)
+_PORTED = (RangeMethod.current_minmax, RangeMethod.allminmax, RangeMethod.running_minmax)
 
 
 def _require_ported(cfg: EstimatorConfig):
@@ -58,5 +58,11 @@ def update(cfg: EstimatorConfig, qcfg: QuantizerConfig, state: EstState, x,
     if cfg.method == RangeMethod.allminmax:
         x_min = torch.minimum(state["xmin"], x_min)
         x_max = torch.maximum(state["xmax"], x_max)
+    elif cfg.method == RangeMethod.running_minmax:
+        # an exponential moving average with weight ``momentum`` on the
+        # state, taken from the first batch as it is
+        first, m = state["count"] == 0, cfg.momentum
+        x_min = torch.where(first, x_min, (1 - m) * x_min + m * state["xmin"])
+        x_max = torch.where(first, x_max, (1 - m) * x_max + m * state["xmax"])
     new = {"xmin": x_min, "xmax": x_max, "count": state["count"] + 1}
     return new, (x_min, x_max, None)

@@ -21,7 +21,7 @@ import torch
 
 from .. import LATER as _LATER
 from ..config import FP8Config, QMethod, QuantizerConfig
-from ..numerics.fp8_ste import default_maxval, quantize_to_fp8_ste
+from ..numerics.fp8_ste import default_maxval, quantize_to_fp8_ste, quantize_to_fp8_ste_affine
 from ..numerics.rounding import pow2, round_ste
 
 QuantState = Dict[str, torch.Tensor]
@@ -57,6 +57,18 @@ def fp_apply(cfg: QuantizerConfig, state: QuantState, x, channel_axis: int = 0
     maxval = bcast_param(state["maxval"], x.ndim, channel_axis)
     return quantize_to_fp8_ste(x, cfg.n_bits, maxval, state["mantissa_bits"],
                                state["sign_bits"])
+
+
+def fp_apply_affine(cfg: QuantizerConfig, state: QuantState, aff
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Quantize a pending :class:`~..quant.sites.Affine` value with its
+    affine and clamp folded into the FP8 clip. Per-tensor sites only: the
+    affine's constants ride the last axis, where a per-channel ``maxval``
+    would fight them (such sites decode the input instead)."""
+    assert not cfg.per_channel
+    return quantize_to_fp8_ste_affine(aff.x, aff.scale, aff.bias, aff.lo, aff.hi, cfg.n_bits,
+                                      state["maxval"], state["mantissa_bits"],
+                                      state["sign_bits"])
 
 
 def fp_bias(cfg: QuantizerConfig, state: QuantState) -> torch.Tensor:

@@ -22,12 +22,12 @@ the same path. The call carries a phase:
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 from torch import nn
 
 from .. import LATER as _LATER
-from .. import LATER_CNN
 from ..config import EstimatorConfig, QMethod, QuantizerConfig
 from ..numerics.rounding import round_ste, to_int32
 from . import estimators, quantizers
@@ -50,12 +50,53 @@ class Coded:
         return dataclasses.replace(self, codes=self.codes.reshape(*shape))
 
 
+@dataclasses.dataclass(frozen=True)
 class Affine:
-    """A tensor with a pending per-channel affine and clamp: the fused
-    boundary of int8 CNN serving."""
+    """A tensor with a pending per-channel affine and clamp: the value is
+    ``clip(x * scale + bias, lo, hi)`` (no clip where ``lo`` / ``hi`` is
+    None), ``scale`` and ``bias`` broadcast on the last axis.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"Affine (fused CNN serving boundaries) {LATER_CNN}")
+    The fused-boundary currency of CNN serving under ``chained``: between a
+    conv's int32 sums and the next layer's act site everything is affine and
+    clamp (the dequant epilogue, the inference BN, ReLU / ReLU6), so the
+    producer hands the raw tensor and its folded per-channel constants on,
+    and the consumer's act site folds them into its own quantization
+    (:func:`fold_quantize_affine` on a uniform grid,
+    ``quantizers.fp_apply_affine`` on an FP one). The clamp merges into the
+    integer bounds exactly; the folded constants equal the sequential chain
+    up to f32 rounding of the constants, exactly when scales and stats are
+    powers of two."""
+
+    x: torch.Tensor
+    scale: torch.Tensor                   # (C,) or () f32
+    bias: torch.Tensor                    # (C,) or () f32
+    lo: Optional[float] = None            # clamp on the post-affine value
+    hi: Optional[float] = None
+
+    @property
+    def shape(self):
+        return self.x.shape
+
+    @property
+    def dtype(self):
+        return torch.float32
+
+    def reshape(self, *shape):
+        """Leading-dim reshapes only (the constants ride the last axis)."""
+        y = self.x.reshape(*shape)
+        assert y.shape[-1] == self.x.shape[-1], (y.shape, self.x.shape)
+        return dataclasses.replace(self, x=y)
+
+    def then_affine(self, s2, b2):
+        """Compose ``v * s2 + b2`` after this affine (no clamp may be set:
+        the activation clamp always comes last)."""
+        assert self.lo is None and self.hi is None
+        return Affine(self.x, self.scale * s2, self.bias * s2 + b2)
+
+    def with_clamp(self, lo, hi):
+        assert self.lo is None and self.hi is None
+        return dataclasses.replace(self, lo=None if lo is None else float(lo),
+                                   hi=None if hi is None else float(hi))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,8 +119,8 @@ class CodedFP:
 
 
 def decoded(x, dtype=torch.float32):
-    """Materialize a :class:`Coded` (always f32) or :class:`CodedFP` back to
-    values; identity for tensors."""
+    """Materialize a :class:`Coded` (always f32), :class:`CodedFP` or
+    :class:`Affine` (always f32) back to values; identity for tensors."""
     if isinstance(x, Coded):
         return x.scale * (x.codes.to(torch.float32) - x.cx)
     if isinstance(x, CodedFP):
@@ -87,11 +128,18 @@ def decoded(x, dtype=torch.float32):
 
         eb, ss = unpack_consts(x.bias, x.mant_width)
         return unpack_exmy_bits(x.codes, x.expo_width, x.mant_width, eb, ss, dtype=dtype)
+    if isinstance(x, Affine):
+        v = x.x.to(torch.float32) * x.scale + x.bias
+        if x.lo is not None:
+            v = torch.clamp(v, min=x.lo)
+        if x.hi is not None:
+            v = torch.clamp(v, max=x.hi)
+        return v
     return x
 
 
 def coded_shape(x):
-    """Shape of a maybe-coded value without decoding it."""
+    """Shape of a maybe-coded (or pending-affine) value without decoding it."""
     return x.codes.shape if isinstance(x, (Coded, CodedFP)) else x.shape
 
 
@@ -161,6 +209,28 @@ def codes_eligible(qcfg: QuantizerConfig, qp: QuantPhase) -> bool:
             and expo >= 1 and 1 + expo + mant <= 8)
 
 
+def fold_quantize_affine(aff: Affine, s, zp, lo_i, hi_i):
+    """The integer grid codes ``x_int`` of a pending :class:`Affine` value
+    on a frozen per-tensor uniform grid, with the affine and clamp folded
+    in: ``clip(round(x * (scale / s) + bias / s) + zp, lo', hi')``, one
+    mul, one add, one round and one clip an element. It mirrors
+    ``clip(round(clip(x * scale + bias, lo, hi) / s) + zp, lo_i, hi_i)``:
+    the value clamp merges into the integer bounds because round is
+    monotone. ``x * k`` and ``+ c`` round apart in f32, as in the JAX
+    package. ``zp`` stays outside the round: ``torch.round`` rounds half to
+    even, which does not commute with integer shifts (``round(2.5) = 2`` but
+    ``round(2.5 + 13) = 16``)."""
+    k = aff.scale / s
+    c = aff.bias / s
+    t = torch.round(aff.x * k + c) + zp
+    lo_b, hi_b = lo_i + 0.0, hi_i + 0.0
+    if aff.lo is not None:
+        lo_b = torch.maximum(lo_b, torch.round(aff.lo / s) + zp)
+    if aff.hi is not None:
+        hi_b = torch.minimum(hi_b, torch.round(aff.hi / s) + zp)
+    return torch.clamp(t, lo_b, hi_b)
+
+
 class QuantSite(nn.Module):
     """Quantizer + range estimator for one tensor site.
 
@@ -206,18 +276,50 @@ class QuantSite(nn.Module):
         return self._frozen[1]
 
     def forward(self, x, qp: QuantPhase = FIXED, *, with_bias: bool = False,
-                as_codes: bool = False):
+                as_codes: bool = False, as_affine: bool = False):
         """Quantize ``x``; returns ``y`` or ``(y, bias)`` when ``with_bias``
         (the approx-matmul path needs the derived exponent bias).
 
         ``as_codes`` (chained serving): return a :class:`CodedFP`, the
         1-byte codes of the site's frozen grid on its packing bias, or on a
-        uniform site a :class:`Coded`, its int8 codes (``quantize_acts_int8``)."""
+        uniform site a :class:`Coded`, its int8 codes (``quantize_acts_int8``).
+
+        A pending :class:`Affine` input folds into a frozen per-tensor site's
+        quantization: on a uniform grid by :func:`fold_quantize_affine`, on an
+        FP grid into the quantizer's clip (``quantizers.fp_apply_affine``,
+        plain PyTorch: K1 takes no affine). ``as_affine`` (fused CNN
+        serving): return the uniform grid codes as an :class:`Affine` with
+        the dequant pending (``value = x_int * s - zp * s``), onto which a
+        following BN folds."""
+        uniform = self.qcfg.method != QMethod.fp_quantizer
+        frozen = not (qp.estimating or self.qcfg.per_channel)
+        pending = None
+        if isinstance(x, Affine):
+            if not frozen:
+                x = decoded(x)
+            elif not uniform:
+                pending, x = x, x.x
+            else:
+                s, zp, lo, hi = self.uniform_int_params()
+                x_int = fold_quantize_affine(x, s[0], zp[0], lo[0], hi[0])
+                if as_codes:
+                    shift = torch.where(lo[0] < 0, 0.0, 128.0)
+                    return Coded((x_int - shift).to(torch.int8), s[0], zp[0] - shift)
+                if as_affine:
+                    return Affine(x_int, s[0], -zp[0] * s[0])
+                y = (x_int - zp[0]) * s[0]
+                return (y, None) if with_bias else y
+        if as_affine:
+            if not (frozen and uniform):
+                raise ValueError("as_affine needs a frozen per-tensor uniform site")
+            s, zp, lo, hi = self.uniform_int_params()
+            x_int = torch.clamp(torch.round(decoded(x).to(torch.float32) / s[0]) + zp[0],
+                                lo[0], hi[0])
+            return Affine(x_int, s[0], -zp[0] * s[0])
         if isinstance(x, (Coded, CodedFP)):
             x = decoded(x)
-        uniform = self.qcfg.method != QMethod.fp_quantizer
         if as_codes and uniform:
-            if qp.estimating or self.qcfg.per_channel:
+            if not frozen:
                 raise ValueError("as_codes needs a frozen per-tensor site")
             from ..ops.fastpath import quantize_acts_int8
 
@@ -250,7 +352,10 @@ class QuantSite(nn.Module):
                 s, zp, lo, hi = self.uniform_int_params()
                 y = s * (torch.clamp(round_ste(x / s) + zp, lo, hi) - zp)
             return (y, None) if with_bias else y
-        if qp.fast and not qp.estimating and not per_channel:
+        if pending is not None:
+            y, bias = quantizers.fp_apply_affine(
+                self.qcfg, q, dataclasses.replace(pending, x=x))
+        elif qp.fast and not qp.estimating and not per_channel:
             y, bias = self._quantize_block(x, q)
         else:
             y, bias = quantizers.fp_apply(self.qcfg, q, x, self.channel_axis)

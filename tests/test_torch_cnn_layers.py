@@ -246,7 +246,8 @@ def test_grouped_oracle_matches_jax_oracle():
 def test_bn_quant_conv_and_reestimation_match_jax(rng):
     """``BNQuantConv`` (depthwise, ReLU6) through ESTIMATE, FIXED and BN
     re-estimation over two batches (``eval.driver.reestimate_bn`` on both
-    sides): site state bit for bit; running stats and outputs within
+    sides), then CHAINED (the BN folded into a pending ``Affine`` with
+    ReLU6's clamp): site state bit for bit; running stats and outputs within
     ``rtol=atol=1e-6`` (module docstring)."""
     from fp8_quantization_tpu.ops.activations import relu6 as j_relu6
     from fp8_quantization_tpu_torch.ops.activations import relu6 as t_relu6
@@ -273,6 +274,11 @@ def test_bn_quant_conv_and_reestimation_match_jax(rng):
                                        np.asarray(jv["batch_stats"][key]), err_msg=key, **tol)
         np.testing.assert_allclose(tm(torch.from_numpy(x), tsites.FIXED).numpy(),
                                    np.asarray(jm.apply(jv, jnp.asarray(x))), **tol)
-    # the chained boundary (a pending Affine) belongs to the next slice
-    with pytest.raises(NotImplementedError, match="CNN slice"):
-        tm(torch.from_numpy(x), tsites.CHAINED)
+        # the fused boundary: BN leaves as a pending Affine, ReLU6 sets its
+        # clamp; its value within the same tolerance of JAX's
+        want = jm.apply(jv, jnp.asarray(x), jsites.CHAINED)
+        got = tm(torch.from_numpy(x), tsites.CHAINED)
+        assert isinstance(want, jsites.Affine) and isinstance(got, tsites.Affine)
+        assert (got.lo, got.hi) == (0.0, 6.0)
+        np.testing.assert_allclose(tsites.decoded(got).numpy(),
+                                   np.asarray(jsites.decoded(want)), **tol)

@@ -55,7 +55,6 @@ from fp8_quantization_tpu.models.mobilenet_v2 import QuantizedMobileNetV2 as JMo
 from fp8_quantization_tpu.models.resnet import QuantizedResNet as JResNet
 from fp8_quantization_tpu.ops import layers as jlayers
 from fp8_quantization_tpu.quant.sites import QuantPhase as JPhase
-from fp8_quantization_tpu_torch import LATER_CNN
 from fp8_quantization_tpu_torch import cli as tcli
 from fp8_quantization_tpu_torch import config as tc
 from fp8_quantization_tpu_torch.eval.driver import calibrate as t_calibrate
@@ -93,6 +92,7 @@ def _qc(mod, approx: bool, quantize_input: bool = True):
 
 # MobileNetV2's (t, c, n, s) table cut to four blocks, patched into the JAX
 # and port modules alike; the models are built for POOLED_SIZE images
+FULL_SETTING = t_mobilenet.INVERTED_RESIDUAL_SETTING
 CUT_SETTING = ((1, 16, 1, 2), (6, 24, 2, 2), (6, 32, 1, 2))
 POOLED_SIZE = 2 * SIZE
 
@@ -227,13 +227,19 @@ PUBLISHED = ["validate-quantized", "--synthetic-data", "--no-cuda", "--batch-siz
 @pytest.mark.parametrize("extra", [["--fast-mode", "--packed-weights", "--chained-acts"],
                                    ["--packed-weights", "--qmethod", "symmetric_uniform"]],
                          ids=["chained_acts", "int8_conv_serving"])
-def test_cnn_serving_boundary_raises_later_cnn(extra):
-    """``--chained-acts`` and int8 conv serving on a CNN need the fused
-    ``Affine`` boundary, the next slice: both raise ``LATER_CNN`` before a
-    model is built."""
-    args = tcli.build_parser().parse_args(
-        PUBLISHED + ["--architecture", "mobilenet_v2_quantized"] + extra)
-    with pytest.raises(NotImplementedError, match=LATER_CNN):
-        tcli.setup(args)
+def test_cnn_serving_boundary_raises_later_cnn(extra, tmp_path, monkeypatch):
+    """``--chained-acts`` (the fused ``Affine`` boundary) and int8 conv
+    serving on a CNN, which raised until the CNN serving boundary was
+    ported, now run: ``validate-quantized --no-cuda`` on the cut MobileNetV2
+    writes its result file with finite metrics. (Their parity with JAX is
+    held in ``tests/test_torch_cnn_serving*.py``.) The CLI feeds the model
+    images of its own size, so it runs the whole table at 32x32."""
+    monkeypatch.setattr(t_mobilenet, "INVERTED_RESIDUAL_SETTING", FULL_SETTING)
+    spec = MobileNetV2Spec(num_classes=CLASSES, width_mult=0.25, image_size=SIZE)
+    monkeypatch.setattr(tcli, "build_model", functools.partial(tcli.build_model, spec=spec))
+    out = tcli.main(PUBLISHED + ["--architecture", "mobilenet_v2_quantized",
+                                 "--approx-output-dir", str(tmp_path)] + extra)
+    assert out["device"] == "cpu" and np.isfinite(out["metrics"]["loss"])
+    assert out["result_file"].startswith(str(tmp_path / "mobilenet_v2_quantized"))
     assert dataclasses.asdict(MobileNetV2Spec()) == dict(num_classes=1000, width_mult=1.0,
                                                          image_size=224)

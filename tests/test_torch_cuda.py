@@ -531,3 +531,37 @@ def test_attention_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="key block"):
         long = torch.zeros((1, 2048, 2, 8), device=cuda, dtype=torch.bfloat16)
         k6.decode_attention(torch.zeros((1, 2, 8), device=cuda), long, long, one, bs=1024)
+
+
+# the int8 conv's distinct shapes in MobileNetV2 and ResNet-18, on small
+# inputs: (kernel, stride, pad, in, out, groups): the stems, a strided and a
+# depthwise 3x3, the 1x1 downsample, a 1x1 with K off a multiple of 8, g = 2
+INT8_CONVS = [(3, 2, 1, 3, 32, 1), (7, 2, 3, 3, 64, 1), (3, 1, 1, 64, 64, 1),
+              (3, 2, 1, 64, 128, 1), (3, 1, 1, 96, 96, 96), (3, 2, 1, 144, 144, 144),
+              (1, 2, 0, 64, 128, 1), (1, 1, 0, 20, 24, 1), (3, 1, 1, 8, 12, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,stride,pad,cin,cout,g", INT8_CONVS, ids=lambda v: str(v))
+def test_int8_conv_sums_match_cpu(cuda, rng, k, stride, pad, cin, cout, g):
+    """The int8 conv of uniform conv serving (``fastpath.int8_conv_sums``:
+    ``torch._int_mm`` on im2col codes, or the int32 tap sums of grouped
+    convs) on the card equals the CPU int32 path and a float64 convolution
+    of the codes, sums and zero-point window sums alike, with the padding
+    filled by the zero point's code 0 or -128."""
+    import torch.nn.functional as F
+
+    from fp8_quantization_tpu_torch.ops.fastpath import int8_conv_sums
+
+    x = torch.from_numpy(rng.integers(-128, 128, size=(2, 11, 11, cin)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(-127, 128, size=(k, k, cin // g, cout)).astype(np.int8))
+    for cx in (0.0, -128.0):
+        kw = dict(strides=(stride, stride), padding=[(pad, pad)] * 2, dilation=(1, 1),
+                  groups=g, with_xsum=True)
+        acc, xsum = int8_conv_sums(x.to(cuda), w.to(cuda), torch.tensor(cx, device=cuda), **kw)
+        cpu_acc, cpu_xsum = int8_conv_sums(x, w, torch.tensor(cx), **kw)
+        assert acc.dtype == torch.int32 and torch.equal(acc.cpu(), cpu_acc)
+        assert torch.equal(xsum.cpu(), cpu_xsum)
+        xp = F.pad(x.permute(0, 3, 1, 2).double(), (pad,) * 4, value=cx)
+        want = F.conv2d(xp, w.permute(3, 2, 0, 1).double(), stride=stride, groups=g)
+        assert torch.equal(cpu_acc.double(), want.permute(0, 2, 3, 1))

@@ -234,17 +234,19 @@ def test_serving_flags_with_cuda_and_no_gpu_raise(monkeypatch):
 
 
 def test_later_slices_raise():
-    """Fused CNN boundaries, int8 codes of a uniform conv and LSQ gradient
-    scaling raise."""
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tsites.Affine(torch.zeros(2), 1.0, 0.0)
+    """LSQ gradient scaling raises. Fused CNN boundaries and the int8 codes
+    of a uniform conv, which raised until the CNN serving boundary was
+    ported, now work: a pending ``Affine`` decodes, and packing such a conv
+    gives kernel-shaped ``w_i8`` codes."""
+    aff = tsites.Affine(torch.tensor([1.0, -3.0]), torch.tensor(2.0), torch.tensor(0.5))
+    assert torch.equal(tsites.decoded(aff.with_clamp(0.0, None)), torch.tensor([2.5, 0.0]))
     uniform = tc.QuantConfig(method=tc.QMethod.symmetric_uniform, quantize_input=True,
                              weight_range=tc.EstimatorConfig(tc.RangeMethod.current_minmax),
                              act_range=tc.EstimatorConfig(tc.RangeMethod.allminmax))
     conv = TConv(uniform, 2, 2, kernel_size=(1, 1))
     conv.w_q = torch.zeros((1, 1, 2, 2))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        fastpath.pack_dense_caches(conv, uniform)
+    _, report = fastpath.pack_dense_caches(conv, uniform)
+    assert report == {"": 1.0} and conv.w_i8.shape == (1, 1, 2, 2)
     with pytest.raises(NotImplementedError, match="later slice"):
         dataclasses.replace(tsites.FIXED, grad_scaling=True)
     # BN re-estimation is ported (the CNN slice)

@@ -28,6 +28,8 @@ On the CPU every kernel wrapper takes its plain version; the launch counters
 must not move.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -350,31 +352,46 @@ def test_uniform_dense_packing_matches_jax(rng, method, n_bits, nonneg):
     np.testing.assert_array_equal(tsites.decoded(chained).numpy(), want)
 
 
-def test_uniform_conv_codes_raise_for_the_cnn_slice():
-    """A conv whose input a per-tensor uniform act site quantizes would take
-    int8 codes (``quantized_conv_int8``): packing it raises, naming the CNN
-    slice, and so does ``validate-quantized --packed-weights`` on ViT with
-    such a configuration."""
+def test_uniform_conv_codes_raise_for_the_cnn_slice(tmp_path, monkeypatch):
+    """A conv whose input a per-tensor uniform act site quantizes takes int8
+    codes (``quantized_conv_int8``), which raised until the CNN serving
+    boundary was ported: packing it now gives JAX's kernel-shaped codes, and
+    PACKED gives JAX's output bit for bit; ``validate-quantized
+    --packed-weights`` with such a configuration runs on a tiny ViT (whose
+    patch embedding is that conv) and writes its result file."""
+    from fp8_quantization_tpu.ops.layers import QuantConv as JConv
+    from fp8_quantization_tpu_torch.models.vit import ViTSpec
     from fp8_quantization_tpu_torch.ops.layers import QuantConv
 
-    qc = _dense_qc(tc, "symmetric_uniform", 8)
-    conv = QuantConv(qc, 3, 4, kernel_size=(2, 2))
-    x = torch.from_numpy(np.random.default_rng(0).normal(size=(1, 4, 4, 3)).astype(np.float32))
+    x = np.random.default_rng(0).normal(size=(1, 4, 4, 3)).astype(np.float32)
+    jm = JConv(qc=_dense_qc(jc, "symmetric_uniform", 8), features=4, kernel_size=(2, 2))
+    variables = numpy_tree(jm.init(jax.random.key(0), jnp.asarray(x), jsites.ESTIMATE))
+    conv = QuantConv(_dense_qc(tc, "symmetric_uniform", 8), 3, 4, kernel_size=(2, 2))
+    conv.load_state_dict(from_jax_variables(variables), strict=True)
+    cache = jsites.QuantPhase(phase="fixed", cache_weights=True, fast=True)
+    _, ups = jm.apply(variables, jnp.asarray(x), cache, mutable=["quant_cache"])
+    jv, _ = jfast.pack_dense_caches({**variables, **ups}, jm.qc)
     with torch.no_grad():
-        conv(x, tsites.ESTIMATE)
-        conv(x, tsites.QuantPhase(phase="fixed", cache_weights=True, fast=True))
-    with pytest.raises(NotImplementedError, match="CNN slice"):
-        fastpath.pack_dense_caches(conv, qc)
-    args = tcli.build_parser().parse_args(
-        ["validate-quantized", "--architecture", "vit_quantized", "--synthetic-data",
-         "--no-cuda", "--qmethod", "symmetric_uniform", "--quantize-input", "--fast-mode",
-         "--packed-weights"])
-    with pytest.raises(NotImplementedError, match="CNN slice"):
-        tcli.run_validate(args)
-    for stub in (lambda: tsites.Affine(torch.zeros(2), 1.0, 0.0),
-                 fastpath.quantize_acts_affine, fastpath.quantized_conv_int8):
-        with pytest.raises(NotImplementedError, match="CNN slice"):
-            stub()
+        conv(torch.from_numpy(x), tsites.QuantPhase(phase="fixed", cache_weights=True,
+                                                    fast=True))
+    fastpath.pack_dense_caches(conv, conv.qc)
+    assert conv.w_i8.shape == (2, 2, 3, 4)
+    theirs = from_jax_variables(numpy_tree({"quant_cache": jv["quant_cache"]}))
+    for key in ("w_i8", "w_i8_scale", "w_i8_sum"):
+        np.testing.assert_array_equal(getattr(conv, key).numpy(), theirs[key].numpy(),
+                                      err_msg=key)
+    with torch.no_grad():
+        got = conv(torch.from_numpy(x), tsites.PACKED).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jm.apply(jv, jnp.asarray(x), jsites.PACKED)))
+    monkeypatch.setattr(tcli, "build_model", functools.partial(tcli.build_model, spec=ViTSpec(
+        hidden_size=32, num_layers=1, num_heads=4, mlp_dim=64, patch_size=8, image_size=32,
+        num_classes=10)))
+    out = tcli.main(["validate-quantized", "--architecture", "vit_quantized",
+                     "--synthetic-data", "--no-cuda", "--batch-size", "2",
+                     "--max-eval-batches", "1", "--qmethod", "symmetric_uniform",
+                     "--quantize-input", "--fast-mode", "--packed-weights",
+                     "--approx-output-dir", str(tmp_path)])
+    assert np.isfinite(out["metrics"]["loss"]) and out["result_file"].startswith(str(tmp_path))
 
 
 # --------------------------------------------------------------------------
