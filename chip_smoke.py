@@ -73,7 +73,20 @@ Phases, one line each (any failure exits non-zero; no phase is skipped):
    ``fused_sdpa=True``: 4 slots of 2048, greedy, prompts of 17, 100, 256 and
    511 tokens and a fifth of 64 admitted when a slot retires, 32 new tokens
    each; under FAST with a bf16 cache (K1, K2, K7, K6) and under PACKED with
-   a uint8 cache (K1, K4, K7, K6 on codes); then, that model freed, built
+   a uint8 cache (K1, K4, K7, K6 on codes). Under each, a ``PrefixCache``
+   run: four prompts of one 256-token head and tails of 17-100 tokens, 1
+   miss and 3 hits whose admissions splice the head and prefill the tail
+   over the slab (K7 with offsets), held to a cold run of the same prompts
+   (their rows within ``RMS_LIMIT``, the tokens while decided; whether they
+   are bit-equal is printed), with the warm and cold admission ms. Under
+   FAST, greedy speculative runs (k = 4, 4 slots, 16 tokens) with a
+   self-draft and with a draft at Llama-3.2-1B's published widths (seeded
+   weights; K6 and K2 route A for the draft decodes, K7 with offsets and
+   route B for the 20-row verify): tokens and logit rows equal bit for bit
+   to a plain run whose decode steps take the verify's route, acceptance,
+   tokens a slot a round, the round's ms split into draft decodes and
+   verify, and the peak memory with the draft beside the target. Then,
+   that model freed, built
    anew in the w4a8 configuration of ``scripts/bench_llama_big.py``
    (4-bit per-channel weights, 8-bit acts, symmetric uniform), packed to
    nibbles and served under PACKED with a bf16 cache (K5, K7, K6). Every
@@ -100,7 +113,10 @@ Phases, one line each (any failure exits non-zero; no phase is skipped):
    where the plain top-1/top-2 margin is at least twice the prefill logits'
    max |d|, at least one such token compared; with the admissions through
    the plain versions, the kernels' decode steps give the plain run's
-   logits and tokens exactly). ``RMS_LIMIT`` lies between the relative RMS
+   logits and tokens exactly); in both, one warm admission and one
+   speculative round (a self-draft, a ``PrefixCache``) with every K1,
+   K2/K4 and K7 call held on its own inputs and the launches the shapes
+   imply. ``RMS_LIMIT`` lies between the relative RMS
    of the plain path with its GEMM and K7 sums in another legal order and in
    a lower-precision control, both read again in every run;
    Llama-3-8B in w4a8 under
@@ -1020,6 +1036,13 @@ LLAMA_SLOTS = 4
 LLAMA_MAX_SEQ = 2048
 # device clock cycles of the sleep ahead of the microsecond attention kernels
 SHORT_HEAD_START = 10_000_000
+# the prefix runs: four prompts of one 256-token head and a unique tail each
+PREFIX_SHARED = 256
+PREFIX_TAILS = (17, 42, 71, 100)
+PREFIX_NEW_TOKENS = 8
+# the speculative runs: greedy, k = 4, the first four prompts
+SPEC_K = 4
+SPEC_NEW_TOKENS = 16
 
 
 def llama_qc():
@@ -1102,6 +1125,16 @@ def serving_phase(packed):
     return QuantPhase(phase="fixed", fast=True, packed=packed, fused_sdpa=True)
 
 
+def expected_counts(counters, per_forward, forwards, k6=0, k7=0):
+    """Each kernel's launches in a run of ``forwards`` forwards that each
+    launch ``per_forward`` (kernel -> count), with K6 and K7 given; every
+    other kernel none."""
+    expected = {key: 0 for key in counters}
+    expected.update({key: n * forwards for key, n in per_forward.items()})
+    expected.update(K6=k6, K7=k7)
+    return expected
+
+
 def serve_llama(name, model, spec, qp, counters, dev, per_forward):
     """Phase 4: the four prompts, then the fifth into the first slot that
     retires, 32 greedy tokens each, with every launch count zeroed just
@@ -1147,10 +1180,8 @@ def serve_llama(name, model, spec, qp, counters, dev, per_forward):
     run["counts"] = counts
     run["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     steps, admissions = len(run["step_s"]), len(run["chunks"])
-    forwards = steps + admissions
-    expected = {key: 0 for key in counters}
-    expected.update({key: n * forwards for key, n in per_forward.items()})
-    expected.update(K6=spec.num_layers * steps, K7=spec.num_layers * admissions)
+    expected = expected_counts(counters, per_forward, steps + admissions,
+                               k6=spec.num_layers * steps, k7=spec.num_layers * admissions)
     outputs = run["outputs"]
     ok = (counts == expected and sorted(outputs) == list(range(len(prompts)))
           and all(len(o) == LLAMA_NEW_TOKENS and all(0 <= t < spec.vocab_size for t in o)
@@ -1865,6 +1896,7 @@ def check_llama_model(dev, counters):
                        f"the plain run {exact} (launches {mixed}); launches {counts}; ok={ok}")
         if not ok:
             raise SystemExit(f"Llama depth 2 {name}: kernels and plain versions disagree")
+        check_warm_and_verify(model, spec, qp, dense, counters)
 
 
 def check_vit_fused(cli, dev, spec, counters):
@@ -1910,10 +1942,349 @@ def check_vit_fused(cli, dev, spec, counters):
         raise SystemExit("ViT FAST+fused: kernels and plain versions disagree")
 
 
+def prefix_prompts(spec):
+    """The prefix runs' prompts: one seeded 256-token head and a unique
+    seeded tail each, of ``PREFIX_TAILS`` tokens."""
+    rng = np.random.default_rng(21)
+    shared = rng.integers(0, spec.vocab_size, PREFIX_SHARED).tolist()
+    return [shared + rng.integers(0, spec.vocab_size, n).tolist() for n in PREFIX_TAILS]
+
+
+def llama32_1b_spec():
+    """Llama-3.2-1B's widths, the public draft for Llama-3-8B (it shares the
+    vocabulary): Hugging Face ``meta-llama/Llama-3.2-1B`` ``config.json``,
+    hidden 2048, 16 layers, 32 heads, 8 KV heads, MLP 8192, vocab 128256,
+    rope theta 500000, RMS eps 1e-5. The published model ties ``lm_head``
+    to the embedding and scales RoPE (``llama3``, factor 32); the port's
+    Llama has an untied ``lm_head`` and plain RoPE. Its weights here are
+    random from a seed: the repository holds none."""
+    from fp8_quantization_tpu_torch.models.llama import LlamaSpec
+
+    return LlamaSpec(vocab_size=128256, hidden_size=2048, num_layers=16, num_heads=32,
+                     num_kv_heads=8, mlp_dim=8192, rope_theta=500000.0, rms_eps=1e-5,
+                     max_seq_len=LLAMA_MAX_SEQ)
+
+
+def serve_recorded(batcher, prompts, new_tokens):
+    """Admit every prompt (one slot each), then step to completion,
+    recording every call of the target. Returns, per prompt in order: its
+    tokens, the f32 logit row behind each token (its admission's last real
+    row, then the step or verify rows that emitted the rest), its
+    admission's logit rows at the positions it prefilled and that
+    admission's prefix length; and the wall seconds of each admission, of
+    the steps, and (with a draft) of the draft decodes and the verifies
+    (each synced), the steps' count and their (slot, round) count."""
+    target, draft = batcher.model, batcher.draft
+    stepping = [False]
+    admissions, step_logits = [], []
+    rec = {"admit_s": [], "step_s": 0.0, "draft_s": 0.0, "verify_s": 0.0}
+
+    def synced(key, fn, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        rec[key] += time.perf_counter() - t0
+        return out
+
+    def target_call(tokens, cache, qp, chunk_attention=False):
+        if stepping[0]:
+            kw = dict(chunk_attention=chunk_attention)
+            logits, cache = (synced("verify_s", target, tokens, cache, qp, **kw) if draft
+                             else target(tokens, cache, qp, **kw))
+            step_logits.append(logits)
+            return logits, cache
+        lp = int(cache.length[0])
+        logits, cache = target(tokens, cache, qp, chunk_attention=chunk_attention)
+        admissions.append((lp, logits))
+        return logits, cache
+
+    def draft_call(tokens, cache, qp, chunk_attention=False):
+        if stepping[0]:
+            return synced("draft_s", draft, tokens, cache, qp, chunk_attention=chunk_attention)
+        return draft(tokens, cache, qp, chunk_attention=chunk_attention)
+
+    batcher.model = target_call
+    if draft is not None:
+        batcher.draft = draft_call
+    slots = []
+    for prompt in prompts:
+        t0 = time.perf_counter()
+        slots.append(batcher.admit(prompt, max_new_tokens=new_tokens))    # reads a token: syncs
+        rec["admit_s"].append(time.perf_counter() - t0)
+    rows = {s: [a[1][0, len(p) - a[0] - 1].float()] for s, p, a in zip(slots, prompts, admissions)}
+    stepping[0] = True
+    rec["steps"] = rec["slot_rounds"] = 0
+    while True:
+        before = {s: len(st["generated"]) for s, st in batcher.active.items()}
+        t0 = time.perf_counter()
+        out = batcher.step()                                               # reads tokens: syncs
+        if not out:
+            break
+        rec["step_s"] += time.perf_counter() - t0
+        rec["steps"] += 1
+        rec["slot_rounds"] += len(out)
+        for s in out:
+            n = len(batcher.active[s]["generated"]) - before[s]
+            rows[s].extend(step_logits[-1][s, :n].float())
+    batcher.model, batcher.draft = target, draft
+    rec["tokens"] = [batcher.retire(s) for s in slots]
+    rec["rows"] = [rows[s] for s in slots]
+    rec["prefilled"] = [(lp, logits[0, :len(p) - lp].float())
+                        for p, (lp, logits) in zip(prompts, admissions)]
+    return rec
+
+
+def rows_verdict(toks, ref_toks, rows, ref_rows, extra=()):
+    """Holds a run's tokens and the logit rows behind them against a
+    reference run's of the same prompts, where a legal summation order
+    separates the two: the rows compared are those whose context the runs
+    share (each prompt's rows up to its first differing token, and the
+    (ours, ref) pairs in ``extra``). Returns a record: their max |d|, their
+    relative RMS (held to ``RMS_LIMIT``, which phase 5 brackets between a
+    legal order and a lower-precision control), whether they are bit-equal,
+    the argmax equal where the reference's top-1/top-2 margin is at least
+    twice the max |d|, and ``tokens_agree_while_decided`` at that max |d|."""
+    ours, ref = [a for a, _ in extra], [b for _, b in extra]
+    for t, rt, r, rr in zip(toks, ref_toks, rows, ref_rows):
+        n = next((i for i, (a, b) in enumerate(zip(t, rt)) if a != b), min(len(t), len(rt)))
+        upto = min(n + 1, len(r), len(rr))
+        ours.append(torch.stack(r[:upto]))
+        ref.append(torch.stack(rr[:upto]))
+    ours, ref = torch.cat([o.reshape(-1, o.shape[-1]) for o in ours]), \
+        torch.cat([o.reshape(-1, o.shape[-1]) for o in ref])
+    diff = float((ours - ref).abs().max())
+    top2 = torch.topk(ref, 2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) >= 2 * diff
+    margins = [[top2_margin(x) for x in rr] for rr in ref_rows]
+    agree, compared = tokens_agree_while_decided(toks, ref_toks, margins, diff)
+    rms = rel_rms(ours, ref)
+    return dict(rows=ours.shape[0], max_diff=diff, rms=rms, equal=bool(torch.equal(ours, ref)),
+                argmax=bool(((ours.argmax(-1) == ref.argmax(-1)) | ~decided).all()),
+                decided=int(decided.sum()), agree=agree, compared=compared,
+                finite=bool(torch.isfinite(ours).all()),
+                ok=(agree and rms <= RMS_LIMIT and bool(torch.isfinite(ours).all())
+                    and bool(((ours.argmax(-1) == ref.argmax(-1)) | ~decided).all())))
+
+
+def verdict_line(v):
+    return (f"{v['rows']} logit rows max|d| {v['max_diff']:.3g}, relative RMS {v['rms']:.4g} "
+            f"(limit {RMS_LIMIT}), bit-equal {v['equal']}, argmax equal where decided "
+            f"{v['argmax']} ({v['decided']} decided), tokens agree while decided {v['agree']} "
+            f"(compared {v['compared']})")
+
+
+def serve_prefix(name, model, spec, qp, counters, dev, per_forward):
+    """Phase 4: the four ``prefix_prompts`` served cold, then through a
+    ``PrefixCache``, 4 slots, ``PREFIX_NEW_TOKENS`` greedy tokens each; the
+    first admission misses and the other three splice its 256-token prefix
+    and prefill only their tails over the slab (K7 with offsets). The warm
+    run's launches, zeroed just before it, must be the counts its shapes
+    imply; its tokens and its warm rows are held to the cold run's by
+    ``rows_verdict``. Returns the warm run's record."""
+    from fp8_quantization_tpu_torch.models.prefix_cache import PrefixCache
+    from fp8_quantization_tpu_torch.models.serving import ContinuousBatcher
+
+    prompts = prefix_prompts(spec)
+
+    def batcher(**kw):
+        return ContinuousBatcher(model, spec, slots=LLAMA_SLOTS, max_seq=LLAMA_MAX_SEQ, qp=qp,
+                                 **kw)
+
+    cold = serve_recorded(batcher(), prompts, PREFIX_NEW_TOKENS)
+    pc = PrefixCache()
+    torch.cuda.synchronize()
+    zero_counts(counters)
+    warm = serve_recorded(batcher(prefix_cache=pc), prompts, PREFIX_NEW_TOKENS)
+    counts = read_counts(counters)
+    forwards = len(prompts) + warm["steps"]
+    expected = expected_counts(counters, per_forward, forwards,
+                               k6=spec.num_layers * warm["steps"],
+                               k7=spec.num_layers * len(prompts))
+    # the warm admissions' rows at their tails against the cold rows at the
+    # same positions
+    extra = [(w, c[lp:]) for (lp, w), (_, c) in zip(warm["prefilled"], cold["prefilled"])
+             if lp > 0]
+    v = rows_verdict(warm["tokens"], cold["tokens"], warm["rows"], cold["rows"], extra)
+    lps = [lp for lp, _ in warm["prefilled"]]
+    ok = (v["ok"] and counts == expected and (pc.misses, pc.hits) == (1, 3)
+          and lps == [0] + [PREFIX_SHARED] * 3
+          and all(len(t) == PREFIX_NEW_TOKENS for t in warm["tokens"]))
+    warm["counts"], warm["verdict"] = counts, v
+    phase("main", f"Llama-3-8B {name} with a PrefixCache: {len(prompts)} prompts of "
+                  f"{PREFIX_SHARED} shared + {list(PREFIX_TAILS)} tokens, {pc.misses} miss and "
+                  f"{pc.hits} hits (prefix lengths {lps}); admission ms cold "
+                  f"{[round(1e3 * t, 2) for t in cold['admit_s']]}, warm "
+                  f"{[round(1e3 * t, 2) for t in warm['admit_s']]}; warm against cold: "
+                  f"{verdict_line(v)}; {warm['steps']} steps; launches {counts} (expected "
+                  f"{expected}); {card_power()}; ok={ok}")
+    if not ok:
+        raise SystemExit(f"Llama {name} prefix run: wrong hits, launch counts or outputs")
+    return warm
+
+
+@contextlib.contextmanager
+def verify_route():
+    """Decode attention through K7 (one query row over the slab, with the
+    slot's length as its offset) in place of K6: the route a speculative
+    verify takes, on a bf16 cache."""
+    from fp8_quantization_tpu_torch.ops.cuda import attention as k7
+    from fp8_quantization_tpu_torch.ops.cuda import decode_attention as k6
+
+    def through_k7(q, k_slab, v_slab, lengths, **kw):
+        if kw.get("k_bias") is not None:
+            raise ValueError("the verify route's reference runs on a bf16 cache")
+        return k7.fused_sdpa(q[:, None].to(torch.bfloat16), k_slab, v_slab, causal=True,
+                             offsets=lengths - 1)[:, 0]
+
+    saved = k6.decode_attention
+    k6.decode_attention = through_k7
+    try:
+        yield
+    finally:
+        k6.decode_attention = saved
+
+
+def run_speculative(model, spec, dev, counters):
+    """Phase 4: greedy speculative serving under FAST+fused, ``SPEC_K`` = 4,
+    4 slots, the first four prompts, ``SPEC_NEW_TOKENS`` each, with a
+    self-draft and with a draft at Llama-3.2-1B's widths (seeded weights,
+    calibrated as the target). Greedy speculation emits the target's own
+    greedy decode as its verify computes it: the verify runs K7 with
+    offsets and K2 route B (20 rows), whose rows do not depend on the other
+    rows of the call. So each run's tokens and the logit rows behind them
+    must equal, bit for bit, a non-speculative run of the same prompts
+    whose decode steps take that route (17 slots, so K2 takes route B; K7
+    in place of K6: ``verify_route``), whatever the draft; and each run's
+    launches, zeroed just before it, the counts its shapes imply. Against
+    the plain FAST run (K6 and K2 route A, another legal order) the rows
+    and tokens are read by ``rows_verdict`` and printed: the two orders
+    part within a few tokens at full depth on random weights, so a
+    self-draft's acceptance falls below 1. Prints acceptance, tokens a slot
+    a round, the round's wall ms split into the draft decodes and the
+    verify, and the peak memory with the draft beside the target."""
+    from fp8_quantization_tpu_torch.models.serving import ContinuousBatcher
+    from fp8_quantization_tpu_torch.ops.cuda.fused_matmul import ROUTE_A_MAX_M
+
+    qp = serving_phase(False)
+    prompts = llama_prompts(spec)[:LLAMA_SLOTS]
+
+    def batcher(slots=LLAMA_SLOTS, **kw):
+        return ContinuousBatcher(model, spec, slots=slots, max_seq=LLAMA_MAX_SEQ, qp=qp, **kw)
+
+    plain = serve_recorded(batcher(), prompts, SPEC_NEW_TOKENS)
+    with verify_route():
+        reference = serve_recorded(batcher(slots=ROUTE_A_MAX_M + 1), prompts, SPEC_NEW_TOKENS)
+    v = rows_verdict(reference["tokens"], plain["tokens"], reference["rows"], plain["rows"])
+    phase("main", f"Llama-3-8B FAST+fused, plain decode through the verify's route (K7, K2 "
+                  f"route B) against the plain route (K6, route A), {len(prompts)} prompts, "
+                  f"{SPEC_NEW_TOKENS} tokens: {verdict_line(v)} (printed, not held: at full "
+                  f"depth the two legal orders part within a few tokens); {card_power()}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    small = llama32_1b_spec()
+    small_model = calibrated_llama(small, dev, seed=2)
+    torch.cuda.synchronize()
+    phase("main", f"Llama-3.2-1B-width draft: "
+                  f"{sum(p.numel() for p in small_model.parameters()) / 1e9:.3f} B parameters, "
+                  f"built and calibrated in {time.perf_counter() - t0:.1f} s beside the target, "
+                  f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated")
+    out = {}
+    for name, draft, draft_spec in (("self-draft", model, spec),
+                                    ("Llama-3.2-1B-width draft", small_model, small)):
+        b = batcher(draft_model=draft, draft_spec=draft_spec, spec_k=SPEC_K)
+        torch.cuda.synchronize()
+        zero_counts(counters)
+        run = serve_recorded(b, prompts, SPEC_NEW_TOKENS)
+        counts = read_counts(counters)
+        rounds, admissions = run["steps"], len(prompts)
+        per = {}
+        for s, forwards in ((spec, admissions + rounds),
+                            (draft_spec, admissions + (SPEC_K + 1) * rounds)):
+            for key, n in (("K1", llama_k1_per_forward(s)), ("K2", llama_dense_per_forward(s))):
+                per[key] = per.get(key, 0) + n * forwards
+        expected = expected_counts(counters, per, 1,
+                                   k6=draft_spec.num_layers * (SPEC_K + 1) * rounds,
+                                   k7=spec.num_layers * (admissions + rounds)
+                                   + draft_spec.num_layers * admissions)
+        exact = (run["tokens"] == reference["tokens"]
+                 and all(len(r) == len(rr) and all(torch.equal(a, b) for a, b in zip(r, rr))
+                         for r, rr in zip(run["rows"], reference["rows"])))
+        emitted = sum(len(t) - 1 for t in run["tokens"])
+        run.update(counts=counts, verdict=v, exact=exact, acceptance=b.acceptance_rate,
+                   tokens_per_slot_round=emitted / max(run["slot_rounds"], 1),
+                   peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+        ok = (exact and counts == expected and v["finite"]
+              and all(len(t) == SPEC_NEW_TOKENS for t in run["tokens"]))
+        # equal to the reference, so its reading against the plain run is this run's
+        phase("main", f"Llama-3-8B FAST+fused speculative, {name}, k={SPEC_K}: acceptance "
+                      f"{b.acceptance_rate:.4f} ({b.accepted} of {b.proposed}), "
+                      f"{run['tokens_per_slot_round']:.3f} tokens a slot a round over {rounds} "
+                      f"rounds; a round {1e3 * run['step_s'] / rounds:.2f} ms wall, of it draft "
+                      f"decodes {1e3 * run['draft_s'] / rounds:.2f} ms and the verify "
+                      f"{1e3 * run['verify_s'] / rounds:.2f} ms (synced); plain FAST steps "
+                      f"{1e3 * plain['step_s'] / plain['steps']:.2f} ms a token; tokens and "
+                      f"rows equal to the verify-route reference bit for bit {exact}; peak "
+                      f"memory {run['peak_gb']:.2f} GB; "
+                      f"launches {counts} (expected {expected}); {card_power()}; ok={ok}")
+        if not ok:
+            raise SystemExit(f"Llama speculative {name}: wrong launch counts or outputs")
+        out[name] = run
+    del small_model
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_warm_and_verify(model, spec, qp, dense, counters):
+    """Phase 5: one warm admission and one speculative verify at depth 2,
+    every K1, K2/K4 and K7 call held on its own inputs
+    (``verified_gemms``, ``verified_attention``) and the launches equal to
+    the counts the shapes imply. A self-draft and a ``PrefixCache``: the
+    second prompt (96 tokens of the first and a 20-token tail) splices the
+    first's 96-token prefix and prefills 32 padded rows over the slab (K7
+    with offsets, K2/K4 route B); one round of 4 slots is five draft decodes
+    (K6, route A) and a 20-row verify (K7 with offsets, route B)."""
+    from fp8_quantization_tpu_torch.models.prefix_cache import PrefixCache
+    from fp8_quantization_tpu_torch.models.serving import ContinuousBatcher
+
+    first = llama_prompts(spec)[1]
+    second = first[:96] + np.random.default_rng(22).integers(0, spec.vocab_size, 20).tolist()
+    pc = PrefixCache()
+    batcher = ContinuousBatcher(model, spec, slots=LLAMA_SLOTS, max_seq=LLAMA_MAX_SEQ, qp=qp,
+                                prefix_cache=pc, draft_model=model, draft_spec=spec,
+                                spec_k=SPEC_K)
+    zero_counts(counters)
+    with verified_gemms({}) as calls, verified_attention({}) as held:
+        batcher.admit(first, max_new_tokens=8)
+        batcher.admit(second, max_new_tokens=8)
+        emitted = batcher.step()
+    counts = read_counts(counters)
+    forwards = 4 + SPEC_K + 1 + 1
+    expected = expected_counts(counters, {"K1": llama_k1_per_forward(spec),
+                                          dense: llama_dense_per_forward(spec)}, forwards,
+                               k6=spec.num_layers * (SPEC_K + 1), k7=spec.num_layers * 5)
+    ok = (counts == expected and (pc.misses, pc.hits) == (1, 1) and len(emitted) == 2
+          and calls["calls"] == counts[dense] and calls["routes"] == {"A", "B"}
+          and held["K7"] == counts["K7"] and held["K1"] == counts["K1"])
+    phase("model", f"Llama-3-8B width {spec.hidden_size}, depth {spec.num_layers}, "
+                   f"{'PACKED+packed_kv' if dense == 'K4' else 'FAST'}+fused: one warm admission "
+                   f"(prefix 96, tail 20) and one verify ({LLAMA_SLOTS} slots x {SPEC_K + 1} "
+                   f"tokens): {calls['calls']} {dense} calls (routes {sorted(calls['routes'])}, "
+                   f"min equal fraction {calls['min_equal']:.4f}) and {held['K7']} K7 calls "
+                   f"(min equal fraction {held['min_equal']:.4f}, worst |d| / bound "
+                   f"{held['worst_ratio']:.3g}) within their contract, {held['K1']} K1 calls "
+                   f"equal; launches {counts} (expected {expected}); ok={ok}")
+    if not ok:
+        raise SystemExit("Llama depth 2 warm admission and verify: wrong calls or counts")
+
+
 def run_llama_serving(dev, counters):
     """Phase 4 for Llama-3-8B: one model, calibrated once; the FAST run on a
-    bf16 cache, then packing and stripping in place and the PACKED run on a
-    uint8 cache of the same calibrated sites."""
+    bf16 cache, its prefix run and its speculative runs, then packing and
+    stripping in place and the PACKED run and prefix run on a uint8 cache of
+    the same calibrated sites. Returns the spec, the plain runs and the
+    prefix and speculative runs."""
     from fp8_quantization_tpu_torch.models.llama import LLAMA3_8B
     from fp8_quantization_tpu_torch.models.serving import pack_llama
 
@@ -1930,6 +2301,10 @@ def run_llama_serving(dev, counters):
     runs = {"fast": serve_llama("FAST+fused, bf16 KV", model, spec, serving_phase(False),
                                 counters, dev, {"K1": k1, "K2": dense})}
     profile_decode("FAST+fused", model, spec, serving_phase(False), dev)
+    more = {"fast prefix": serve_prefix("FAST+fused, bf16 KV", model, spec, serving_phase(False),
+                                        counters, dev, {"K1": k1, "K2": dense})}
+    more.update({f"spec {name}": run for name, run in
+                 run_speculative(model, spec, dev, counters).items()})
     t0 = time.perf_counter()
     report = pack_llama(model)
     torch.cuda.synchronize()
@@ -1940,9 +2315,12 @@ def run_llama_serving(dev, counters):
     runs["packed"] = serve_llama("PACKED+packed_kv+fused, uint8 KV", model, spec,
                                  serving_phase(True), counters, dev, {"K1": k1, "K4": dense})
     profile_decode("PACKED+packed_kv+fused", model, spec, serving_phase(True), dev)
+    more["packed prefix"] = serve_prefix("PACKED+packed_kv+fused, uint8 KV", model, spec,
+                                         serving_phase(True), counters, dev,
+                                         {"K1": k1, "K4": dense})
     del model
     torch.cuda.empty_cache()
-    return spec, runs
+    return spec, runs, more
 
 
 def run_llama_w4a8(dev, counters):
@@ -2647,7 +3025,7 @@ def main() -> int:
 
     # Llama-3-8B served by ContinuousBatcher; K7 and K6 checked and timed at
     # the shapes each run gave them
-    llama_spec, llama = run_llama_serving(dev, counters)
+    llama_spec, llama, prefix_spec = run_llama_serving(dev, counters)
     times.update(time_llama_attention(llama_spec, dev, llama["fast"], False, gemm_err))
     times["K6 codes"] = time_llama_attention(llama_spec, dev, llama["packed"], True,
                                              gemm_err)["K6"]
@@ -2717,6 +3095,10 @@ def main() -> int:
         **({"per_cnn_forward": {arch: {f: t[f] for f in ("launches", "ms", "bound_ms",
                                                           "bound_by")}
                                 for arch, t in k3_cnn.items()}} if key == "K3" else {}),
+        # the Llama-3-8B prefix and speculative runs of phase 4 (launches per run)
+        **({"prefix_spec_launches": {run: r["counts"][key] for run, r in prefix_spec.items()
+                                     if r["counts"][key]}}
+           if key in ("K1", "K2", "K4", "K6", "K7") else {}),
     } for name, key, src, tpu, launches, err in kernels]}
     step = "; ".join([f"{key} {t['step']['ms']:.3f} ms (bound {t['step']['bound_ms']:.3f}, "
                       f"torch.matmul {t['step']['library_ms']:.3f})"
@@ -2733,6 +3115,13 @@ def main() -> int:
         f"Llama-3-8B {mode}: prefill {r['prefill_tok_s']:.1f} tok/s, decode "
         f"{r['decode_tok_s']:.2f} tok/s, median step {r['step_ms_median']:.2f} ms, peak "
         f"{r['peak_gb']:.2f} GB" for mode, r in llama.items())
+    served += "".join(
+        f"; Llama-3-8B {run}: " + (
+            f"acceptance {r['acceptance']:.4f}, {r['tokens_per_slot_round']:.3f} tokens a slot "
+            f"a round, {1e3 * r['step_s'] / r['steps']:.2f} ms a round" if "acceptance" in r
+            else "admission ms " + str([round(1e3 * t, 2) for t in r["admit_s"]]))
+        + f", relative RMS to the plain run {r['verdict']['rms']:.4g}"
+        for run, r in prefix_spec.items())
     phase("done", f"ms/img: approx {approx_ms:.2f}, published {pub_ms:.2f}, "
                   + ", ".join(f"{mode} {serving[mode][1]:.2f}" for mode in SERVING_FLAGS)
                   + "; CNN ms/img at batch 16: "

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 
@@ -73,3 +74,11 @@ def sample_tokens(logits, params: SamplingParams,
         raise ValueError("sampling with temperature > 0 needs a torch.Generator")
     return torch.multinomial(filtered_probs(logits, params), 1,
                              generator=generator).reshape(-1)
+
+
+def seeded_generator(seed: int, count: int, device) -> torch.Generator:
+    """A generator on ``device`` seeded from (``seed``, ``count``): the
+    port's counterpart of folding a call count into a PRNG key."""
+    state = np.random.SeedSequence([seed, count]).generate_state(2)
+    return torch.Generator(device=device).manual_seed(
+        (int(state[0]) << 32 | int(state[1])) & (2 ** 63 - 1))

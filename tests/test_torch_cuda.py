@@ -565,3 +565,80 @@ def test_int8_conv_sums_match_cpu(cuda, rng, k, stride, pad, cin, cout, g):
         xp = F.pad(x.permute(0, 3, 1, 2).double(), (pad,) * 4, value=cx)
         want = F.conv2d(xp, w.permute(3, 2, 0, 1).double(), stride=stride, groups=g)
         assert torch.equal(cpu_acc.double(), want.permute(0, 2, 3, 1))
+
+
+def _llama_qc():
+    """``scripts/bench_llama.py``'s FP8 configuration."""
+    from fp8_quantization_tpu_torch import config as tc
+
+    return tc.QuantConfig(
+        method=tc.QMethod.fp_quantizer, per_channel_weights=True, quantize_input=True,
+        weight_range=tc.EstimatorConfig(tc.RangeMethod.current_minmax),
+        act_range=tc.EstimatorConfig(tc.RangeMethod.allminmax),
+        fp8=tc.FP8Config(set_maxval=True, mse_include_mantissa_bits=False),
+        run_method=tc.RunMethodConfig(res_quantizer_flag=True, original_quantize_res=True))
+
+
+@pytest.mark.cuda
+def test_warm_admission_and_verify_through_the_kernels(cuda, monkeypatch):
+    """A small Llama under FAST+fused with a ``PrefixCache`` and a
+    self-draft, 4 slots: a warm admission (a 48-token prefix spliced, a
+    24-token tail prefilled as 32 rows over the slab) and one speculative
+    round (a 20-row verify). Every K7 call with offsets and every K2 call
+    on route B is held to its plain version's contract on its own inputs."""
+    from fp8_quantization_tpu_torch.models.llama import LlamaSpec, QuantizedLlama
+    from fp8_quantization_tpu_torch.models.prefix_cache import PrefixCache
+    from fp8_quantization_tpu_torch.models.serving import ContinuousBatcher, calibrate_llama
+    from fp8_quantization_tpu_torch.quant.sites import QuantPhase
+
+    spec = LlamaSpec(vocab_size=1024, hidden_size=512, num_layers=2, num_heads=8,
+                     num_kv_heads=2, mlp_dim=1024, max_seq_len=256)
+    model = QuantizedLlama(_llama_qc(), spec, device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(0))
+    gen = np.random.default_rng(3)
+    calibrate_llama(model, gen.integers(0, spec.vocab_size, (2, 16)))
+    held = {"K7 offsets": [], "K2 route B": []}
+    sdpa, gemm = k7.fused_sdpa, k2.fused_quant_matmul
+
+    def sdpa_call(q, k, v, **kw):
+        monkeypatch.setattr(k7, "fused_sdpa", sdpa)       # the wrapper counts under its name
+        ours = sdpa(q, k, v, **kw)
+        monkeypatch.setattr(k7, "fused_sdpa", sdpa_call)
+        if kw.get("offsets") is not None:
+            _assert_sdpa(ours, q, k, v, **kw)
+            held["K7 offsets"].append(tuple(q.shape))
+        return ours
+
+    def gemm_call(x, w, act=None, **kw):
+        monkeypatch.setattr(k2, "fused_quant_matmul", gemm)
+        ours = gemm(x, w, act, **kw)
+        monkeypatch.setattr(k2, "fused_quant_matmul", gemm_call)
+        if k2.gemm_route(x.shape[0]) == "B":
+            x_eff = k2.quantize_block_plain(x, *act) if kw.get("quantize_x", True) else x
+            plain = k2.fused_quant_matmul_plain(x, w, act, **kw)
+            _assert_gemm(ours, plain, x_eff.to(torch.bfloat16).float(), w.float(), plain)
+            held["K2 route B"].append(tuple(x.shape))
+        return ours
+
+    sdpa_call.launches = gemm_call.launches = 0
+    first = gen.integers(0, spec.vocab_size, 50).tolist()
+    second = first[:48] + gen.integers(0, spec.vocab_size, 24).tolist()
+    pc = PrefixCache()
+    batcher = ContinuousBatcher(model, spec, slots=4, qp=QuantPhase(phase="fixed", fast=True,
+                                                                   fused_sdpa=True),
+                                prefix_cache=pc, draft_model=model, draft_spec=spec, spec_k=4)
+    batcher.admit(first, max_new_tokens=8)
+    monkeypatch.setattr(k7, "fused_sdpa", sdpa_call)
+    monkeypatch.setattr(k2, "fused_quant_matmul", gemm_call)
+    batcher.admit(second, max_new_tokens=8)
+    warm = {key: list(calls) for key, calls in held.items()}
+    assert batcher.step() and pc.hits == 1
+    torch.cuda.synchronize()
+    print(f"held on their own inputs: {held}")
+    # the warm admission: K7 over the slab from 48, K2 at 32 rows (the draft's
+    # cold prefill of all 72 tokens is a chunk, without offsets)
+    assert warm["K7 offsets"] == [(1, 32, 8, 64)] * spec.num_layers
+    assert (32, spec.hidden_size) in warm["K2 route B"]
+    # the verify: 4 slots x 5 tokens
+    assert held["K7 offsets"][-spec.num_layers:] == [(4, 5, 8, 64)] * spec.num_layers
+    assert (20, spec.hidden_size) in held["K2 route B"]
