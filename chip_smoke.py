@@ -85,8 +85,19 @@ Phases, one line each (any failure exits non-zero; no phase is skipped):
    route B for the 20-row verify): tokens and logit rows equal bit for bit
    to a plain run whose decode steps take the verify's route, acceptance,
    tokens a slot a round, the round's ms split into draft decodes and
-   verify, and the peak memory with the draft beside the target. Then,
-   that model freed, built
+   verify, and the peak memory with the draft beside the target. Then
+   ``PagedBatcher`` over 129 pages of 16 tokens, FAST (bf16 pool) and,
+   after packing, PACKED (uint8 pool): the same prompts and schedule, held
+   bit for bit (tokens and every logit row) to a dense run whose decodes
+   take the einsum route a paged decode takes (``einsum_route``: no K6),
+   the late prompt reusing pages a retired slot freed and the peak memory
+   below the dense run's, with the median steps (paged, dense einsum,
+   dense K6), peak memory, pages in use at the peak and the gather's and
+   scatter's device ms a step (``torch.profiler``); the prefix prompts
+   through pages, warm rows bit-equal to cold ones; and the self-draft
+   speculative run through pages, three admissions warm (64-token entries
+   a paged batcher stored), bit-equal to the dense speculative run,
+   acceptance included. Then, that model freed, built
    anew in the w4a8 configuration of ``scripts/bench_llama_big.py``
    (4-bit per-channel weights, 8-bit acts, symmetric uniform), packed to
    nibbles and served under PACKED with a bf16 cache (K5, K7, K6). Every
@@ -1043,6 +1054,10 @@ PREFIX_NEW_TOKENS = 8
 # the speculative runs: greedy, k = 4, the first four prompts
 SPEC_K = 4
 SPEC_NEW_TOKENS = 16
+# the paged runs: pages of 16 tokens, 128 usable pages (2,048 token rows, one
+# slot's max_seq) and the trash page
+LLAMA_PAGE = 16
+LLAMA_PAGES = LLAMA_MAX_SEQ // LLAMA_PAGE + 1
 
 
 def llama_qc():
@@ -1135,35 +1150,64 @@ def expected_counts(counters, per_forward, forwards, k6=0, k7=0):
     return expected
 
 
-def serve_llama(name, model, spec, qp, counters, dev, per_forward):
+def serve_llama(name, model, spec, qp, counters, dev, per_forward, batcher=None, k6=True,
+                record=False):
     """Phase 4: the four prompts, then the fifth into the first slot that
     retires, 32 greedy tokens each, with every launch count zeroed just
     before; the counts must be the ones the run's shapes imply: K7 once a
-    layer per admission, K6 once a layer per step, ``per_forward`` (kernel
-    -> launches) per forward and no other kernel. Returns the run's record:
-    stats, counts and the shapes the kernels saw."""
+    layer per admission, K6 once a layer per step (none with ``k6`` False:
+    a ``PagedBatcher``, or the dense batcher under ``einsum_route``),
+    ``per_forward`` (kernel -> launches) per forward and no other kernel.
+    ``batcher``: the batcher to serve with (default a dense
+    ``ContinuousBatcher``). ``record``: keep each request's logit rows (its
+    admission's last prompt row, then each step's) for the bit-for-bit
+    comparisons. A ``PagedBatcher`` run also records the pages in use at the
+    peak and the pages the late prompt took from the slot retired before
+    it. Returns the run's record: stats, counts and the shapes the kernels
+    saw."""
+    from fp8_quantization_tpu_torch.models.paged_kv import PagedBatcher
     from fp8_quantization_tpu_torch.models.serving import ContinuousBatcher, _pad_to_bucket
 
     prompts = llama_prompts(spec)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    batcher = ContinuousBatcher(model, spec, slots=LLAMA_SLOTS, max_seq=LLAMA_MAX_SEQ, qp=qp)
+    if batcher is None:
+        batcher = ContinuousBatcher(model, spec, slots=LLAMA_SLOTS, max_seq=LLAMA_MAX_SEQ,
+                                    qp=qp)
+    paged = isinstance(batcher, PagedBatcher)
     run = {"prefill_s": 0.0, "prefill_tokens": 0, "step_s": [], "step_tokens": 0,
-           "chunks": [], "step_lengths": [], "outputs": {}}
+           "chunks": [], "step_lengths": [], "outputs": {}, "rows": {}, "peak_pages": 0,
+           "late_reused": None}
+    last = {}
+    if record:
+        target = batcher.model
+
+        def recording(tokens, cache, qp_, chunk_attention=False):
+            logits, cache = target(tokens, cache, qp_, chunk_attention=chunk_attention)
+            last["logits"] = logits
+            return logits, cache
+
+        batcher.model = recording
     zero_counts(counters)
 
-    def admit(prompt):
+    def admit(prompt, request):
         t0 = time.perf_counter()
         slot = batcher.admit(prompt, max_new_tokens=LLAMA_NEW_TOKENS)   # reads a token: syncs
         run["prefill_s"] += time.perf_counter() - t0
         run["prefill_tokens"] += len(prompt)
         run["chunks"].append(_pad_to_bucket(len(prompt)))
+        if record:
+            # a copy, and the chunk's logits dropped, so that the peak
+            # memory is the batcher's own
+            run["rows"][request] = [last.pop("logits")[0, len(prompt) - 1].float().clone()]
+        if paged:
+            run["peak_pages"] = max(run["peak_pages"], batcher.pages_in_use)
         return slot
 
-    owner = {admit(p): i for i, p in enumerate(prompts[:-1])}
+    owner = {admit(p, i): i for i, p in enumerate(prompts[:-1])}
     late = prompts[-1]
     while True:
-        lengths = batcher.cache.length.tolist()
+        lengths = batcher._lengths()
         t0 = time.perf_counter()
         out = batcher.step()                                            # reads tokens: syncs
         if not out:
@@ -1171,29 +1215,46 @@ def serve_llama(name, model, spec, qp, counters, dev, per_forward):
         run["step_s"].append(time.perf_counter() - t0)
         run["step_tokens"] += len(out)
         run["step_lengths"].append(lengths)
+        if record:
+            logits = last.pop("logits")
+            for slot in out:
+                run["rows"][owner[slot]].append(logits[slot, -1].float())
+        if paged:
+            run["peak_pages"] = max(run["peak_pages"], batcher.pages_in_use)
         for slot in [s for s, st in batcher.active.items() if st["done"]]:
+            freed = set(batcher.table[slot][batcher.table[slot] > 0].tolist()) if paged else ()
             run["outputs"][owner.pop(slot)] = batcher.retire(slot)
             if late is not None:
-                owner[admit(late)] = len(prompts) - 1
+                late_slot = admit(late, len(prompts) - 1)
+                owner[late_slot] = len(prompts) - 1
+                if paged:
+                    run["late_reused"] = sorted(freed & set(batcher.table[late_slot].tolist()))
                 late = None
     counts = read_counts(counters)
     run["counts"] = counts
     run["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    if record:
+        batcher.model = target
     steps, admissions = len(run["step_s"]), len(run["chunks"])
     expected = expected_counts(counters, per_forward, steps + admissions,
-                               k6=spec.num_layers * steps, k7=spec.num_layers * admissions)
+                               k6=spec.num_layers * steps if k6 else 0,
+                               k7=spec.num_layers * admissions)
     outputs = run["outputs"]
+    run["tokens"] = [outputs[i] for i in sorted(outputs)]
+    run["rows"] = [run["rows"][i] for i in sorted(run["rows"])]
     ok = (counts == expected and sorted(outputs) == list(range(len(prompts)))
           and all(len(o) == LLAMA_NEW_TOKENS and all(0 <= t < spec.vocab_size for t in o)
                   for o in outputs.values()))
     run["prefill_tok_s"] = run["prefill_tokens"] / run["prefill_s"]
     run["decode_tok_s"] = run["step_tokens"] / sum(run["step_s"])
     run["step_ms_median"] = 1e3 * float(np.median(run["step_s"]))
+    pages = (f"; {run['peak_pages']} of {batcher.num_pages - 1} pages in use at the peak, the "
+             f"late prompt took freed pages {run['late_reused']}" if paged else "")
     phase("main", f"Llama-3-8B {name}: {admissions} admissions ({run['prefill_tokens']} "
                   f"prompt tokens, chunks {run['chunks']}), {steps} decode steps "
                   f"({run['step_tokens']} tokens); prefill {run['prefill_tok_s']:.1f} tok/s, "
                   f"decode {run['decode_tok_s']:.2f} tok/s, median step "
-                  f"{run['step_ms_median']:.2f} ms, peak memory {run['peak_gb']:.2f} GB; "
+                  f"{run['step_ms_median']:.2f} ms, peak memory {run['peak_gb']:.2f} GB{pages}; "
                   f"launches {counts} (expected {expected}); first tokens "
                   f"{[outputs[i][:4] for i in sorted(outputs)]}; ok={ok}")
     if not ok:
@@ -1201,17 +1262,21 @@ def serve_llama(name, model, spec, qp, counters, dev, per_forward):
     return run
 
 
-def profile_decode(name, model, spec, qp, dev, steps=3):
+def profile_decode(name, model, spec, qp, dev, steps=3, batcher=None, ops=()):
     """Where a decode step's time goes: ``torch.profiler`` over ``steps``
-    steps of a batcher holding the four prompts (after one unprofiled step).
-    Prints the wall and device time per step, the device's busy share, the
-    kernel launches per step and the heaviest kernels. The profiler's own
-    host cost inflates the wall time."""
+    steps of a batcher (default a dense ``ContinuousBatcher``) holding the
+    four prompts (after one unprofiled step). Prints the wall and device
+    time per step, the device's busy share, the kernel launches per step,
+    the heaviest kernels and the device ms a step of each PyTorch op in
+    ``ops`` (the kernels it launched). The profiler's own host cost
+    inflates the wall time. Returns {op: device ms per step}."""
     from torch.profiler import ProfilerActivity, profile
 
     from fp8_quantization_tpu_torch.models.serving import ContinuousBatcher
 
-    batcher = ContinuousBatcher(model, spec, slots=LLAMA_SLOTS, max_seq=LLAMA_MAX_SEQ, qp=qp)
+    if batcher is None:
+        batcher = ContinuousBatcher(model, spec, slots=LLAMA_SLOTS, max_seq=LLAMA_MAX_SEQ,
+                                    qp=qp)
     for prompt in llama_prompts(spec)[:-1]:
         batcher.admit(prompt, max_new_tokens=LLAMA_NEW_TOKENS)
     batcher.step()
@@ -1226,16 +1291,24 @@ def profile_decode(name, model, spec, qp, dev, steps=3):
     def device_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
-    kernels = sorted((e for e in prof.key_averages() if device_us(e) > 0), key=device_us,
-                     reverse=True)
+    def total_us(e):
+        return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+
+    averages = prof.key_averages()
+    kernels = sorted((e for e in averages if device_us(e) > 0), key=device_us, reverse=True)
     busy_us = sum(device_us(e) for e in kernels)
     launches = sum(e.count for e in kernels)
     top = "; ".join(f"{e.key[:40]} {device_us(e) / 1e3 / steps:.2f} ms x{e.count // steps}"
                     for e in kernels[:6])
+    op_ms = {op: sum(total_us(e) for e in averages if e.key == op) / 1e3 / steps for op in ops}
+    op_calls = {op: sum(e.count for e in averages if e.key == op) // steps for op in ops}
     phase("main", f"Llama-3-8B {name} decode step, profiled over {steps} steps at 4 live "
                   f"slots: wall {1e3 * wall / steps:.2f} ms, device {busy_us / 1e3 / steps:.2f} "
                   f"ms (busy share {busy_us / 1e6 / wall:.3f}), {launches // steps} kernel "
-                  f"launches per step; heaviest: {top}")
+                  f"launches per step; heaviest: {top}"
+                  + "".join(f"; {op} x{op_calls[op]} {op_ms[op]:.3f} device ms per step"
+                            for op in ops))
+    return op_ms
 
 
 def _sdpa_verdict(name, ours, q, k, v, **kw):
@@ -2074,20 +2147,33 @@ def verdict_line(v):
             f"(compared {v['compared']})")
 
 
-def serve_prefix(name, model, spec, qp, counters, dev, per_forward):
+def paged_batcher(model, spec, qp, **kw):
+    """The paged runs' ``PagedBatcher``: the dense runs' slots and
+    ``max_seq`` over ``LLAMA_PAGES`` pages of ``LLAMA_PAGE`` tokens."""
+    from fp8_quantization_tpu_torch.models.paged_kv import PagedBatcher
+
+    return PagedBatcher(model, spec, slots=LLAMA_SLOTS, num_pages=LLAMA_PAGES,
+                        page_size=LLAMA_PAGE, max_seq=LLAMA_MAX_SEQ, qp=qp, **kw)
+
+
+def serve_prefix(name, model, spec, qp, counters, dev, per_forward, paged=False):
     """Phase 4: the four ``prefix_prompts`` served cold, then through a
     ``PrefixCache``, 4 slots, ``PREFIX_NEW_TOKENS`` greedy tokens each; the
     first admission misses and the other three splice its 256-token prefix
-    and prefill only their tails over the slab (K7 with offsets). The warm
-    run's launches, zeroed just before it, must be the counts its shapes
-    imply; its tokens and its warm rows are held to the cold run's by
-    ``rows_verdict``. Returns the warm run's record."""
+    (``paged``: scatter it into fresh pages) and prefill only their tails
+    over the slab or the gathered view (K7 with offsets). The warm run's
+    launches, zeroed just before it, must be the counts its shapes imply (no
+    K6 when ``paged``); its tokens and its warm rows are held to the cold
+    run's by ``rows_verdict``, and when ``paged`` equal to them bit for bit.
+    Returns the warm run's record."""
     from fp8_quantization_tpu_torch.models.prefix_cache import PrefixCache
     from fp8_quantization_tpu_torch.models.serving import ContinuousBatcher
 
     prompts = prefix_prompts(spec)
 
     def batcher(**kw):
+        if paged:
+            return paged_batcher(model, spec, qp, **kw)
         return ContinuousBatcher(model, spec, slots=LLAMA_SLOTS, max_seq=LLAMA_MAX_SEQ, qp=qp,
                                  **kw)
 
@@ -2099,7 +2185,7 @@ def serve_prefix(name, model, spec, qp, counters, dev, per_forward):
     counts = read_counts(counters)
     forwards = len(prompts) + warm["steps"]
     expected = expected_counts(counters, per_forward, forwards,
-                               k6=spec.num_layers * warm["steps"],
+                               k6=0 if paged else spec.num_layers * warm["steps"],
                                k7=spec.num_layers * len(prompts))
     # the warm admissions' rows at their tails against the cold rows at the
     # same positions
@@ -2109,8 +2195,10 @@ def serve_prefix(name, model, spec, qp, counters, dev, per_forward):
     lps = [lp for lp, _ in warm["prefilled"]]
     ok = (v["ok"] and counts == expected and (pc.misses, pc.hits) == (1, 3)
           and lps == [0] + [PREFIX_SHARED] * 3
-          and all(len(t) == PREFIX_NEW_TOKENS for t in warm["tokens"]))
+          and all(len(t) == PREFIX_NEW_TOKENS for t in warm["tokens"])
+          and (not paged or (v["equal"] and warm["tokens"] == cold["tokens"])))
     warm["counts"], warm["verdict"] = counts, v
+    name = f"{name}, paged" if paged else name
     phase("main", f"Llama-3-8B {name} with a PrefixCache: {len(prompts)} prompts of "
                   f"{PREFIX_SHARED} shared + {list(PREFIX_TAILS)} tokens, {pc.misses} miss and "
                   f"{pc.hits} hits (prefix lengths {lps}); admission ms cold "
@@ -2143,6 +2231,148 @@ def verify_route():
         yield
     finally:
         k6.decode_attention = saved
+
+
+@contextlib.contextmanager
+def einsum_route():
+    """Dense decode attention through ``models/llama.py::einsum_attention``
+    over the whole decoded slab in place of K6: the route a paged decode
+    takes over its gathered view (the JAX package's dispatch), on a bf16 or
+    a coded cache. With the same prompts a dense run then computes what a
+    paged run does, bit for bit: the same shapes (S = ``max_seq`` = pages x
+    page size) and the same values below each length; keys past it get
+    probability 0 whatever finite value they hold."""
+    from fp8_quantization_tpu_torch.models.llama import einsum_attention
+    from fp8_quantization_tpu_torch.numerics.codec import unpack_consts, unpack_exmy_bits
+    from fp8_quantization_tpu_torch.ops.cuda import decode_attention as k6
+
+    def through_einsum(q, k_slab, v_slab, lengths, k_bias=None, v_bias=None, kv_expo=None,
+                       kv_mant=None):
+        def load(u, bias):
+            if bias is None:
+                return u.to(torch.float32)
+            eb, ss = unpack_consts(bias, kv_mant)
+            return unpack_exmy_bits(u, kv_expo, kv_mant, eb, ss)
+
+        b, h, d = q.shape
+        hk = k_slab.shape[2]
+        length = lengths - 1
+        ctx = einsum_attention(q.reshape(b, 1, hk, h // hk, d), load(k_slab, k_bias),
+                               load(v_slab, v_bias), length[:, None], length)
+        return ctx.reshape(b, h, d)
+
+    saved = k6.decode_attention
+    k6.decode_attention = through_einsum
+    try:
+        yield
+    finally:
+        k6.decode_attention = saved
+
+
+def rows_equal(rows, ref_rows):
+    """Each request's logit rows equal the reference's bit for bit."""
+    return len(rows) == len(ref_rows) and all(
+        len(r) == len(rr) and all(torch.equal(a, b) for a, b in zip(r, rr))
+        for r, rr in zip(rows, ref_rows))
+
+
+def serve_paged(name, model, spec, qp, counters, dev, per_forward, plain):
+    """Phase 4: ``serve_llama``'s prompts and schedule through a
+    ``PagedBatcher`` (``paged_batcher``; its decodes take the einsum over
+    each slot's gathered pages, no K6), held bit for bit, tokens and every
+    logit row, to a dense run of the same prompts under ``einsum_route``
+    (each run's launches the counts its shapes imply). The late prompt must
+    reuse pages of the slot retired before it, and the paged run's peak
+    memory must lie below the dense one's. Prints the median step of both
+    beside the plain dense run's (``plain``, K6), the peak memory of each,
+    the pages in use at the peak and the device ms a step of the gather
+    (``aten::index``: each layer's K and V views and the embedding) and the
+    scatter (``aten::index_put_``) from ``torch.profiler``. Returns the
+    paged run and the dense one."""
+    with einsum_route():
+        dense = serve_llama(f"{name}, dense through the einsum route", model, spec, qp,
+                            counters, dev, per_forward, k6=False, record=True)
+    run = serve_llama(f"{name}, paged", model, spec, qp, counters, dev, per_forward,
+                      batcher=paged_batcher(model, spec, qp), k6=False, record=True)
+    ops = profile_decode(f"{name}, paged", model, spec, qp, dev,
+                         batcher=paged_batcher(model, spec, qp),
+                         ops=("aten::index", "aten::index_put_"))
+    exact = run["tokens"] == dense["tokens"] and rows_equal(run["rows"], dense["rows"])
+    rows = sum(len(r) for r in run["rows"])
+    run.update(exact=exact, gather_ms=ops["aten::index"], scatter_ms=ops["aten::index_put_"],
+               dense_step_ms=dense["step_ms_median"], dense_peak_gb=dense["peak_gb"])
+    ok = (exact and bool(run["late_reused"]) and run["peak_gb"] < dense["peak_gb"]
+          and all(torch.isfinite(r).all() for rr in run["rows"] for r in rr))
+    phase("main", f"Llama-3-8B {name} paged against dense through the einsum route: tokens and "
+                  f"{rows} logit rows equal bit for bit {exact}; median step paged "
+                  f"{run['step_ms_median']:.2f} ms, dense einsum {dense['step_ms_median']:.2f} "
+                  f"ms, dense K6 {plain['step_ms_median']:.2f} ms; peak memory paged "
+                  f"{run['peak_gb']:.3f} GB, dense einsum {dense['peak_gb']:.3f} GB, dense K6 "
+                  f"{plain['peak_gb']:.3f} GB; {run['peak_pages']} of {LLAMA_PAGES - 1} pages "
+                  f"in use at the peak; the late prompt reused freed pages "
+                  f"{run['late_reused']}; gather {run['gather_ms']:.3f} and scatter "
+                  f"{run['scatter_ms']:.3f} device ms a step; {card_power()}; ok={ok}")
+    if not ok:
+        raise SystemExit(f"Llama {name} paged: not equal to the dense einsum run, no page "
+                         "reuse or no memory saved")
+    return run, dense
+
+
+def run_paged_speculative(model, spec, dev, counters, dense):
+    """Phase 4: ``run_speculative``'s self-draft run (FAST+fused, k = 4, the
+    first four prompts) through a ``PagedBatcher`` with a ``PrefixCache``
+    that a paged batcher filled by admitting each prompt once (entries of
+    at most 64 tokens, bucket 32): the three prompts it holds 64 tokens of
+    are admitted warm (their pages scatter the prefix, the remainder of at
+    least 36 rows prefills over the gathered view: K7 with offsets, K2
+    route B), the 17-token one cold (shorter than a bucket). The draft
+    keeps its dense slab and prefills every prompt whole. Tokens and logit
+    rows must equal the dense speculative run's (``dense``) bit for bit,
+    and so its acceptance: the verify reads the same 2048 positions through
+    the page table, and warm rows equal cold ones. Launches as the shapes
+    imply."""
+    from fp8_quantization_tpu_torch.models.prefix_cache import PrefixCache
+
+    qp = serving_phase(False)
+    prompts = llama_prompts(spec)[:LLAMA_SLOTS]
+    prefix_cache = PrefixCache(bucket=32, max_entry_tokens=64)
+    primer = paged_batcher(model, spec, qp, prefix_cache=prefix_cache)
+    for prompt in prompts:
+        primer.retire(primer.admit(prompt, max_new_tokens=1))
+    del primer
+    b = paged_batcher(model, spec, qp, prefix_cache=prefix_cache, draft_model=model,
+                      draft_spec=spec, spec_k=SPEC_K)
+    torch.cuda.synchronize()
+    zero_counts(counters)
+    run = serve_recorded(b, prompts, SPEC_NEW_TOKENS)
+    counts = read_counts(counters)
+    rounds, admissions = run["steps"], len(prompts)
+    forwards = 2 * admissions + (SPEC_K + 2) * rounds
+    expected = expected_counts(counters, {"K1": llama_k1_per_forward(spec),
+                                          "K2": llama_dense_per_forward(spec)}, forwards,
+                               k6=spec.num_layers * (SPEC_K + 1) * rounds,
+                               k7=spec.num_layers * (2 * admissions + rounds))
+    lps = [lp for lp, _ in run["prefilled"]]
+    exact = run["tokens"] == dense["tokens"] and rows_equal(run["rows"], dense["rows"])
+    run.update(counts=counts, exact=exact, acceptance=b.acceptance_rate,
+               verdict=dense["verdict"],
+               tokens_per_slot_round=sum(len(t) - 1 for t in run["tokens"])
+               / max(run["slot_rounds"], 1))
+    ok = (exact and counts == expected and lps == [0, 64, 64, 64]
+          and prefix_cache.hits == 3 and b.acceptance_rate == dense["acceptance"]
+          and b.allocator.num_free == LLAMA_PAGES - 1)
+    phase("main", f"Llama-3-8B FAST+fused paged speculative, self-draft, k={SPEC_K}, "
+                  f"admissions warm at prefix lengths {lps}: acceptance "
+                  f"{b.acceptance_rate:.4f} ({b.accepted} of {b.proposed}; dense "
+                  f"{dense['acceptance']:.4f}), {run['tokens_per_slot_round']:.3f} tokens a slot a "
+                  f"round over {rounds} rounds, a round {1e3 * run['step_s'] / rounds:.2f} ms "
+                  f"wall (draft decodes {1e3 * run['draft_s'] / rounds:.2f}, verify "
+                  f"{1e3 * run['verify_s'] / rounds:.2f}); tokens and rows equal to the dense "
+                  f"speculative run bit for bit {exact}; launches {counts} (expected "
+                  f"{expected}); {card_power()}; ok={ok}")
+    if not ok:
+        raise SystemExit("Llama paged speculative: not equal to the dense run, or wrong counts")
+    return run
 
 
 def run_speculative(model, spec, dev, counters):
@@ -2209,8 +2439,7 @@ def run_speculative(model, spec, dev, counters):
                                    k7=spec.num_layers * (admissions + rounds)
                                    + draft_spec.num_layers * admissions)
         exact = (run["tokens"] == reference["tokens"]
-                 and all(len(r) == len(rr) and all(torch.equal(a, b) for a, b in zip(r, rr))
-                         for r, rr in zip(run["rows"], reference["rows"])))
+                 and rows_equal(run["rows"], reference["rows"]))
         emitted = sum(len(t) - 1 for t in run["tokens"])
         run.update(counts=counts, verdict=v, exact=exact, acceptance=b.acceptance_rate,
                    tokens_per_slot_round=emitted / max(run["slot_rounds"], 1),
@@ -2281,10 +2510,11 @@ def check_warm_and_verify(model, spec, qp, dense, counters):
 
 def run_llama_serving(dev, counters):
     """Phase 4 for Llama-3-8B: one model, calibrated once; the FAST run on a
-    bf16 cache, its prefix run and its speculative runs, then packing and
-    stripping in place and the PACKED run and prefix run on a uint8 cache of
-    the same calibrated sites. Returns the spec, the plain runs and the
-    prefix and speculative runs."""
+    bf16 cache, its prefix run and its speculative runs, the paged FAST runs
+    (plain, prefix, speculative), then packing and stripping in place and
+    the PACKED run, prefix run and paged run on a uint8 cache of the same
+    calibrated sites. Returns the spec, the plain runs, the prefix and
+    speculative runs and the paged runs with their dense references."""
     from fp8_quantization_tpu_torch.models.llama import LLAMA3_8B
     from fp8_quantization_tpu_torch.models.serving import pack_llama
 
@@ -2305,6 +2535,15 @@ def run_llama_serving(dev, counters):
                                         counters, dev, {"K1": k1, "K2": dense})}
     more.update({f"spec {name}": run for name, run in
                  run_speculative(model, spec, dev, counters).items()})
+    paged = {}
+    paged["paged FAST"], paged["dense einsum FAST"] = serve_paged(
+        "FAST+fused", model, spec, serving_phase(False), counters, dev,
+        {"K1": k1, "K2": dense}, runs["fast"])
+    paged["paged FAST prefix"] = serve_prefix("FAST+fused, bf16 KV", model, spec,
+                                              serving_phase(False), counters, dev,
+                                              {"K1": k1, "K2": dense}, paged=True)
+    paged["paged spec self-draft"] = run_paged_speculative(model, spec, dev, counters,
+                                                           more["spec self-draft"])
     t0 = time.perf_counter()
     report = pack_llama(model)
     torch.cuda.synchronize()
@@ -2318,9 +2557,12 @@ def run_llama_serving(dev, counters):
     more["packed prefix"] = serve_prefix("PACKED+packed_kv+fused, uint8 KV", model, spec,
                                          serving_phase(True), counters, dev,
                                          {"K1": k1, "K4": dense})
+    paged["paged PACKED"], paged["dense einsum PACKED"] = serve_paged(
+        "PACKED+packed_kv+fused", model, spec, serving_phase(True), counters, dev,
+        {"K1": k1, "K4": dense}, runs["packed"])
     del model
     torch.cuda.empty_cache()
-    return spec, runs, more
+    return spec, runs, more, paged
 
 
 def run_llama_w4a8(dev, counters):
@@ -3025,7 +3267,7 @@ def main() -> int:
 
     # Llama-3-8B served by ContinuousBatcher; K7 and K6 checked and timed at
     # the shapes each run gave them
-    llama_spec, llama, prefix_spec = run_llama_serving(dev, counters)
+    llama_spec, llama, prefix_spec, paged = run_llama_serving(dev, counters)
     times.update(time_llama_attention(llama_spec, dev, llama["fast"], False, gemm_err))
     times["K6 codes"] = time_llama_attention(llama_spec, dev, llama["packed"], True,
                                              gemm_err)["K6"]
@@ -3099,6 +3341,10 @@ def main() -> int:
         **({"prefix_spec_launches": {run: r["counts"][key] for run, r in prefix_spec.items()
                                      if r["counts"][key]}}
            if key in ("K1", "K2", "K4", "K6", "K7") else {}),
+        # the paged runs of phase 4 and their dense einsum-route references
+        # (launches per run; no K6 on a paged target decode)
+        **({"paged_launches": {run: r["counts"][key] for run, r in paged.items()}}
+           if key in ("K1", "K2", "K4", "K6", "K7") else {}),
     } for name, key, src, tpu, launches, err in kernels]}
     step = "; ".join([f"{key} {t['step']['ms']:.3f} ms (bound {t['step']['bound_ms']:.3f}, "
                       f"torch.matmul {t['step']['library_ms']:.3f})"
@@ -3122,6 +3368,12 @@ def main() -> int:
             else "admission ms " + str([round(1e3 * t, 2) for t in r["admit_s"]]))
         + f", relative RMS to the plain run {r['verdict']['rms']:.4g}"
         for run, r in prefix_spec.items())
+    served += "".join(
+        f"; Llama-3-8B {run}: median step {r['step_ms_median']:.2f} ms (dense einsum "
+        f"{r['dense_step_ms']:.2f}), peak {r['peak_gb']:.3f} GB (dense einsum "
+        f"{r['dense_peak_gb']:.3f}), {r['peak_pages']} pages at the peak, gather "
+        f"{r['gather_ms']:.3f} device ms a step, bit-equal {r['exact']}"
+        for run, r in paged.items() if run in ("paged FAST", "paged PACKED"))
     phase("done", f"ms/img: approx {approx_ms:.2f}, published {pub_ms:.2f}, "
                   + ", ".join(f"{mode} {serving[mode][1]:.2f}" for mode in SERVING_FLAGS)
                   + "; CNN ms/img at batch 16: "

@@ -9,20 +9,25 @@
   ``packed_kv`` (FP8 only), as 1-byte ExMy codes on the sites' packing
   biases;
 * one call handles a prefill chunk (T tokens) or a decode step (T=1) over a
-  ``KVCache`` of fixed-capacity slots with per-slot lengths.
+  ``KVCache`` of fixed-capacity slots with per-slot lengths, or over a
+  ``paged_kv.PagedKVCache``: a shared pool of pages and a page table per
+  slot.
 
 In the serving phases with ``QuantPhase(fused_sdpa=True)`` the prefill
 attention is the fused SDPA kernel (K7: the cold chunk, or the warm cache
-slab with per-slot ``offsets``) and the decode attention the decode kernel
-(K6, over bf16 or coded slabs); otherwise it is the einsum path. Unlike the
-TPU kernels, neither has a size gate: both stream the key axis.
+slab with per-slot ``offsets``) and the dense decode attention the decode
+kernel (K6, over bf16 or coded slabs); otherwise it is the einsum path
+(``einsum_attention``). A paged decode takes the einsum path over the
+slot's gathered view, as the JAX package dispatches it. Unlike the TPU
+kernels, neither kernel has a size gate: both stream the key axis.
 
 The cache is written in place: the JAX package threads the whole stacked
 cache through every layer and donates its buffer, which the port does by
-writing the chunk's rows into the caller's ``k``/``v`` tensors. A call
-returns a ``KVCache`` holding those same tensors and a new ``length``. The
-writes clamp their start as ``lax.dynamic_update_slice`` does, so that the
-chunk fits the slab.
+writing the chunk's rows into the caller's ``k``/``v`` tensors (or pages).
+A call returns a cache holding those same tensors and a new ``length``. The
+dense writes clamp their start as ``lax.dynamic_update_slice`` does, so that
+the chunk fits the slab; paged writes past a slot's table go to the trash
+page, as the JAX package's scatter drops them.
 
 Module and parameter names are the flax ones (``embed``, ``layer_{i}``,
 ``attn_norm``, ``q_proj``, ``k_cache_quantizer``, ``mlp_norm``,
@@ -122,6 +127,38 @@ def write_rows(slab, rows, length):
                                                   rows.reshape(b * t, *rows.shape[2:]))
 
 
+def page_slots(page_table, positions, page: int):
+    """Physical (page, offset) of each position of a chunk: ``page_table``
+    (B, max_pages) maps a slot's logical pages to pool pages, ``positions``
+    (B, T) are absolute. A position past the table maps to the trash page 0,
+    where the JAX package's out-of-range scatter writes nothing."""
+    logical = torch.div(positions, page, rounding_mode="floor").to(torch.int64)
+    max_pages = page_table.shape[1]
+    pp = torch.take_along_dim(page_table.to(torch.int64), logical.clamp(max=max_pages - 1),
+                              dim=1)
+    return torch.where(logical < max_pages, pp, 0), positions % page
+
+
+def einsum_attention(qg, kf, vf, positions, length):
+    """Attention over a cache view in plain PyTorch: each query at
+    ``positions`` (B, T) attends to the keys at or before it and below
+    ``length + T``. qg: (B, T, K, G, D) grouped queries; kf/vf: (B, S, K, D)
+    decoded keys/values, the dense slab or a slot's gathered pages. Masked
+    keys get probability 0, so what they hold (finite) never shows.
+    Returns the context (B, T, K * G * D)."""
+    b, t, _, _, hd = qg.shape
+    s_max = kf.shape[1]
+    scores = torch.einsum("btkgd,bskd->btkgs", qg, kf) / _sqrt_f32(hd, qg.device)
+    key_pos = torch.arange(s_max, device=qg.device)[None, :]            # (1, S)
+    valid = key_pos[:, None, :] <= positions[..., None]                 # (B, T, S)
+    valid = valid & (key_pos[:, None, :] < (length[:, None, None] + t))
+    scores = torch.where(valid[:, :, None, None, :], scores,
+                         torch.tensor(-1e30, device=qg.device))
+    probs = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("btkgs,bskd->btkgd", probs, vf)
+    return ctx.reshape(b, t, -1)
+
+
 class QuantLlamaBlock(nn.Module):
     """One decoder layer. ``packed_kv``: store K/V as 1-byte ExMy codes on
     the K/V sites' packing biases (half the footprint of bf16); needs fixed
@@ -178,12 +215,12 @@ class QuantLlamaBlock(nn.Module):
 
         x: (B, T, hidden); positions: (B, T) absolute positions of the chunk;
         length: (B,) cache fill before it. ``k_cache``/``v_cache`` are the
-        full (L, B, S, H_kv, D) slabs; this layer writes its rows of the
-        chunk into slab ``layer_idx`` in place. ``chunk_attention``: attend
-        over the chunk's own K/V instead of the slab (valid for an empty
-        cache, where it is value-identical). Returns the layer's output."""
-        if page_table is not None:
-            raise NotImplementedError(f"the paged KV cache (page_table) {_LATER}")
+        full (L, B, S, H_kv, D) slabs, or with a ``page_table`` (B,
+        max_pages) the (L, N_pages, page, H_kv, D) pools; this layer writes
+        its rows of the chunk into slab or pool ``layer_idx`` in place.
+        ``chunk_attention``: attend over the chunk's own K/V instead of the
+        slab (valid for an empty cache, where it is value-identical).
+        Returns the layer's output."""
         s = self.spec
         b, t, _ = x.shape
         hd = s.head_dim
@@ -225,9 +262,25 @@ class QuantLlamaBlock(nn.Module):
                 return u.to(torch.float32)
 
         k_st, v_st = store(k, kb), store(v, vb)
-        write_rows(k_cache[layer_idx], k_st, length)
-        write_rows(v_cache[layer_idx], v_st, length)
-        s_max = k_cache.shape[2]
+        if page_table is None:
+            write_rows(k_cache[layer_idx], k_st, length)
+            write_rows(v_cache[layer_idx], v_st, length)
+
+            def slab(cache):
+                return cache[layer_idx]
+        else:
+            # scatter into the pool (the layer's pages are a view of it);
+            # idle slots and unallocated positions all land on the trash
+            # page 0, which only masked keys ever read
+            page = k_cache.shape[2]
+            pp, off = page_slots(page_table, positions, page)
+            k_cache[layer_idx][pp, off] = k_st
+            v_cache[layer_idx][pp, off] = v_st
+
+            def slab(cache):
+                # the slot's logical view, a gathered copy: (B, S, H_kv, D)
+                return cache[layer_idx][page_table.to(torch.int64)].reshape(
+                    b, -1, s.num_kv_heads, hd)
 
         fused = qp.fast and not qp.estimating and qp.fused_sdpa is True
         qg = q.reshape(b, t, s.num_kv_heads, groups, hd)
@@ -249,9 +302,9 @@ class QuantLlamaBlock(nn.Module):
             # warm prefill over the cache slab: T new queries at positions
             # length[b] + i attend to keys [0, length[b] + i], the kernel's
             # per-slot causal offsets (the tail past them is masked)
-            ctx = self._fused_ctx(qg, load(k_cache[layer_idx], kb),
-                                  load(v_cache[layer_idx], vb), offsets=length)
-        elif fused and t == 1:
+            ctx = self._fused_ctx(qg, load(slab(k_cache), kb), load(slab(v_cache), vb),
+                                  offsets=length)
+        elif fused and t == 1 and page_table is None:
             dec_kw = (dict(k_bias=kb, v_bias=vb, kv_expo=kv_expo, kv_mant=kv_mant)
                       if self.packed_kv else {})
             ctx = k6.decode_attention(q[:, 0], k_cache[layer_idx], v_cache[layer_idx],
@@ -259,16 +312,8 @@ class QuantLlamaBlock(nn.Module):
             ctx = ctx.reshape(b, 1, s.num_heads * hd)
         else:
             # attention over the cache prefix [0, length + t), GQA grouping
-            kf, vf = load(k_cache[layer_idx], kb), load(v_cache[layer_idx], vb)
-            scores = torch.einsum("btkgd,bskd->btkgs", qg, kf) / _sqrt_f32(hd, x.device)
-            key_pos = torch.arange(s_max, device=x.device)[None, :]          # (1, S)
-            valid = key_pos[:, None, :] <= positions[..., None]              # (B, T, S)
-            valid = valid & (key_pos[:, None, :] < (length[:, None, None] + t))
-            scores = torch.where(valid[:, :, None, None, :], scores,
-                                 torch.tensor(-1e30, device=x.device))
-            probs = torch.softmax(scores, dim=-1)
-            ctx = torch.einsum("btkgs,bskd->btkgd", probs, vf)
-            ctx = ctx.reshape(b, t, s.num_heads * hd)
+            ctx = einsum_attention(qg, load(slab(k_cache), kb), load(slab(v_cache), vb),
+                                   positions, length)
 
         attn_out = self.o_proj(ctx, qp)
         x = x + decoded(attn_out).to(torch.float32)
@@ -309,7 +354,7 @@ class QuantizedLlama(nn.Module):
     embeddings, lecun-normal kernels, unit norm scales); load others through
     ``load_state_dict`` (``models.bridge`` carries JAX variables across).
     ``packed_kv`` (settable): the cache holds uint8 codes, build it with
-    ``KVCache.zeros(..., dtype=torch.uint8)``.
+    ``KVCache.zeros(..., dtype=torch.uint8)`` (or ``PagedKVCache.zeros``).
     """
 
     def __init__(self, qc: QuantConfig, spec: LlamaSpec = LLAMA_TINY, *, ring_spec=None,
@@ -343,22 +388,27 @@ class QuantizedLlama(nn.Module):
             getattr(self, f"layer_{i}").packed_kv = self._packed_kv
 
     def forward(self, tokens, cache, qp: QuantPhase = FIXED, chunk_attention: bool = False):
-        """tokens: (B, T) integer ids appended after ``cache.length``.
-        Returns (logits (B, T, vocab), the cache with the chunk written in
-        place and ``length + T``)."""
-        if hasattr(cache, "page_table"):
-            raise NotImplementedError(f"the paged KV cache (PagedKVCache) {_LATER}")
+        """tokens: (B, T) integer ids appended after ``cache.length``;
+        ``cache`` is a dense ``KVCache`` or a ``paged_kv.PagedKVCache``.
+        Returns (logits (B, T, vocab), the cache of the same type with the
+        chunk written in place and ``length + T``)."""
+        page_table = getattr(cache, "page_table", None)
+        if page_table is None:
+            k_full, v_full = cache.k, cache.v
+        else:
+            k_full, v_full = cache.k_pages, cache.v_pages
+            page_table = page_table.to(torch.int64)    # once, for every layer's indexing
         want = torch.uint8 if self.packed_kv else torch.bfloat16
-        if cache.k.dtype != want or cache.v.dtype != want:
+        if k_full.dtype != want or v_full.dtype != want:
             raise TypeError(f"a {'packed_kv' if self.packed_kv else 'bf16'} model takes a "
-                            f"{want} cache, got {cache.k.dtype}")
+                            f"{want} cache, got {k_full.dtype}")
         s = self.spec
         b, t = tokens.shape
         positions = cache.length[:, None] + torch.arange(t, device=tokens.device)[None, :]
         x = self.embed[tokens]
         for i in range(s.num_layers):
-            x = getattr(self, f"layer_{i}")(x, cache.k, cache.v, i, positions, cache.length,
-                                            qp, None, chunk_attention)
+            x = getattr(self, f"layer_{i}")(x, k_full, v_full, i, positions, cache.length,
+                                            qp, page_table, chunk_attention)
         x = _rms_norm(x, self.final_norm, s.rms_eps)
         logits = self.lm_head(x, qp)
-        return decoded(logits), KVCache(k=cache.k, v=cache.v, length=cache.length + t)
+        return decoded(logits), cache._replace(length=cache.length + t)

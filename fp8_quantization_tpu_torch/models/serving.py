@@ -15,8 +15,9 @@ route: K7 with per-slot offsets under FAST+fused). With a draft model every
 step is a batched speculative round (``models/speculative.py``): k+1 draft
 decodes and one (slots, k+1)-token target verify, each slot advancing by 1
 to k+1 tokens with a per-slot rollback of both caches' lengths. The draft
-is always prefilled cold over the full prompt. The mesh-sharded batcher
-belongs to a later slice and raises.
+is always prefilled cold over the full prompt. ``paged_kv.PagedBatcher``
+shares this protocol over a paged cache. The mesh-sharded batcher belongs
+to a later slice and raises.
 
 ``calibrate_llama`` then ``pack_llama`` are the calibrate-then-serve
 sequence of ``scripts/bench_llama.py`` and ``scripts/bench_llama_big.py``:
@@ -103,6 +104,13 @@ class ContinuousBatcher:
     stochastic output keeps :func:`~.speculative.spec_accept`'s exact
     target law per slot. Both compose with each other and with packed
     (uint8) KV on either model.
+
+    The target's cache is held behind six methods (``_new_cache``,
+    ``_admit_target``, ``_reserve``, ``_run_target``, ``_advance``,
+    ``_lengths``) and ``retire``: here one dense slab a slot with its
+    lengths on the device;
+    ``paged_kv.PagedBatcher`` keeps pages and host lengths instead and
+    shares the rest (sampling, the draft, the speculative round).
     """
 
     def __init__(self, model, spec: LlamaSpec, *, slots: int = 4,
@@ -129,7 +137,7 @@ class ContinuousBatcher:
         self.proposed = 0   # speculative telemetry (SpecStats)
         self.accepted = 0
         self.device = _device(model)
-        self.cache = self._slot_cache(model, spec)
+        self.cache = self._new_cache()
         self.draft_cache = (self._slot_cache(draft_model, draft_spec)
                             if draft_model is not None else None)
         self.free: List[int] = list(range(slots))
@@ -140,6 +148,9 @@ class ContinuousBatcher:
         return KVCache.zeros(spec, self.slots, self.max_seq,
                              dtype=torch.uint8 if model.packed_kv else torch.bfloat16,
                              device=self.device)
+
+    def _new_cache(self):
+        return self._slot_cache(self.model, self.spec)
 
     def _next_generator(self) -> Optional[torch.Generator]:
         """The generator of the next sampling call: a seed derived from
@@ -156,15 +167,36 @@ class ContinuousBatcher:
         return KVCache(k=cache.k[:, slot:slot + 1], v=cache.v[:, slot:slot + 1],
                        length=torch.full((1,), length, dtype=torch.int32, device=self.device))
 
-    def _prefill(self, model, qp, sub: KVCache, tokens: List[int], chunk_attention: bool):
-        """Right-padded prefill of ``tokens`` into the one-slot cache ``sub``;
-        returns the logits row of the last real token, (1, V)."""
+    def _prefill(self, model, qp, sub, tokens: List[int], chunk_attention: bool):
+        """Right-padded prefill of ``tokens`` into the one-slot cache ``sub``
+        (dense or paged); returns the logits row of the last real token,
+        (1, V)."""
         t_pad = _pad_to_bucket(len(tokens))
         padded = np.zeros((1, t_pad), np.int64)
         padded[0, :len(tokens)] = tokens
         logits, _ = model(torch.from_numpy(padded).to(self.device), sub, qp,
                           chunk_attention=chunk_attention)
         return logits[:1, len(tokens) - 1, :]
+
+    def _admit_target(self, slot: int, prompt: List[int], pref):
+        """Prefill ``prompt`` into the target's ``slot``, warm from the
+        prefix-cache entry ``pref`` (length, k, v) or cold, store its prefix
+        and set the slot's length; returns the last prompt token's logits
+        row."""
+        if pref is not None:
+            lp, k_pref, v_pref = pref
+            self.cache.k[:, slot:slot + 1, :lp] = k_pref
+            self.cache.v[:, slot:slot + 1, :lp] = v_pref
+            row = self._prefill(self.model, self.qp, self._slot(self.cache, slot, lp),
+                                prompt[lp:], chunk_attention=False)
+        else:
+            row = self._prefill(self.model, self.qp, self._slot(self.cache, slot, 0), prompt,
+                                chunk_attention=True)
+        if self.prefix_cache is not None:
+            self.prefix_cache.store(prompt, self.cache.k[:, slot:slot + 1],
+                                    self.cache.v[:, slot:slot + 1])
+        self.cache.length[slot] = len(prompt)
+        return row
 
     @torch.no_grad()
     def admit(self, prompt: List[int], max_new_tokens: int = 32) -> int:
@@ -188,22 +220,15 @@ class ContinuousBatcher:
         pref = self.prefix_cache.lookup(prompt) if self.prefix_cache is not None else None
         if pref is not None and pref[0] + _pad_to_bucket(real - pref[0]) > self.max_seq:
             pref = None
-        if pref is not None:
-            lp, k_pref, v_pref = pref
-            self.cache.k[:, slot:slot + 1, :lp] = k_pref
-            self.cache.v[:, slot:slot + 1, :lp] = v_pref
-            row = self._prefill(self.model, self.qp, self._slot(self.cache, slot, lp),
-                                prompt[lp:], chunk_attention=False)
-        else:
-            row = self._prefill(self.model, self.qp, self._slot(self.cache, slot, 0), prompt,
-                                chunk_attention=True)
+        row = self._admit_target(slot, prompt, pref)
         first = int(sample_tokens(row, self.sampling, self._next_generator())[0])
-        if self.prefix_cache is not None:
-            self.prefix_cache.store(prompt, self.cache.k[:, slot:slot + 1],
-                                    self.cache.v[:, slot:slot + 1])
-        self.cache.length[slot] = real
         if self.draft is not None:
-            # the draft's cache holds prompt + generated[:-1], as the target's
+            # the draft's cache holds prompt + generated[:-1], as the
+            # target's. On a warm admission too the draft prefills the whole
+            # prompt: the JAX package's PagedBatcher prefills it with the
+            # remainder only (paged_kv.py:439-462), which keeps its greedy
+            # tokens (the verify corrects them) but loses most acceptance;
+            # both batchers here depart from it on purpose
             self._prefill(self.draft, self.draft_qp, self._slot(self.draft_cache, slot, 0),
                           prompt, chunk_attention=True)
             self.draft_cache.length[slot] = real
@@ -215,12 +240,33 @@ class ContinuousBatcher:
         }
         return slot
 
+    def _reserve(self, live: List[int], n: int) -> None:
+        """Make room for ``n`` more rows in each live slot (the dense slabs
+        always have it)."""
+
+    def _run_target(self, tokens):
+        """The target over every slot on ``tokens`` (slots, n): each slot
+        writes its n rows after its length and the lengths advance by n.
+        Returns (logits, the target's cache)."""
+        logits, self.cache = self.model(tokens, self.cache, self.qp)
+        return logits, self.cache
+
+    def _advance(self, advance, n: int) -> None:
+        """After a forward of ``n`` rows a slot, keep ``advance[s]`` of slot
+        s's (``advance`` (slots,) int32 on the host); the rest are dead
+        data past the length, overwritten by later writes."""
+        adv = torch.from_numpy(advance).to(self.device)
+        self.cache = self.cache._replace(length=self.cache.length - n + adv)
+
+    def _lengths(self) -> List[int]:
+        return self.cache.length.tolist()
+
     @torch.no_grad()
     def step(self) -> Dict[int, int]:
         """One batched decode step for every active unfinished slot; returns
         slot -> token (with a draft, the last token each slot emitted).
-        Idle slots run too (one fixed shape) and write at their frozen
-        length, which the ``keep`` mask does not advance.
+        Idle slots run too (one fixed shape) and write past their frozen
+        length, which only live slots advance.
 
         With a draft model this is a batched speculative round: each live
         slot advances by 1 to ``spec_k`` + 1 tokens. Slots whose cache
@@ -234,13 +280,13 @@ class ContinuousBatcher:
         tokens = np.zeros((self.slots, 1), np.int64)
         for s in live:
             tokens[s, 0] = self.active[s]["generated"][-1]
-        keep = np.zeros((self.slots,), bool)
-        keep[live] = True
-        logits, new = self.model(torch.from_numpy(tokens).to(self.device), self.cache, self.qp)
-        keep_t = torch.from_numpy(keep).to(self.device)
-        self.cache = new._replace(length=torch.where(keep_t, new.length, new.length - 1))
+        advance = np.zeros((self.slots,), np.int32)
+        advance[live] = 1
+        self._reserve(live, 1)
+        logits, _ = self._run_target(torch.from_numpy(tokens).to(self.device))
+        self._advance(advance, 1)
         nt = sample_tokens(logits[:, -1, :], self.sampling, self._next_generator()).tolist()
-        lengths = self.cache.length.tolist()
+        lengths = self._lengths()
 
         out: Dict[int, int] = {}
         for s in live:
@@ -271,21 +317,22 @@ class ContinuousBatcher:
         tokens = np.zeros((self.slots,), np.int64)
         for s in live:
             tokens[s] = self.active[s]["generated"][-1]
-        keep = np.zeros((self.slots,), bool)
-        keep[live] = True
+        self._reserve(live, k + 1)
 
-        emitted, m, t_cache, d_cache = batched_spec_round(
-            self.draft, self.draft_cache, self.draft_qp,
-            lambda toks: self.model(toks, self.cache, self.qp),
+        emitted, m, _, d_cache = batched_spec_round(
+            self.draft, self.draft_cache, self.draft_qp, self._run_target,
             torch.from_numpy(tokens).to(self.device), k, self.sampling,
             self._next_generator())
+        em, mm = emitted.tolist(), m.tolist()
         # per-slot rollback: live slots advance to their accepted frontier
         # (m + 1 of the k + 1 writes), idle slots undo them all; positions
         # past the length are dead data, as an idle slot's decode writes
-        advance = torch.where(torch.from_numpy(keep).to(self.device), m.to(torch.int32) + 1, 0)
-        self.cache = t_cache._replace(length=t_cache.length - (k + 1) + advance)
-        self.draft_cache = d_cache._replace(length=d_cache.length - (k + 1) + advance)
-        em, mm = emitted.tolist(), m.tolist()
+        advance = np.zeros((self.slots,), np.int32)
+        for s in live:
+            advance[s] = mm[s] + 1
+        self._advance(advance, k + 1)
+        self.draft_cache = d_cache._replace(
+            length=d_cache.length - (k + 1) + torch.from_numpy(advance).to(self.device))
 
         out: Dict[int, int] = {}
         for s in live:

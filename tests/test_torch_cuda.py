@@ -642,3 +642,69 @@ def test_warm_admission_and_verify_through_the_kernels(cuda, monkeypatch):
     # the verify: 4 slots x 5 tokens
     assert held["K7 offsets"][-spec.num_layers:] == [(4, 5, 8, 64)] * spec.num_layers
     assert (20, spec.hidden_size) in held["K2 route B"]
+
+
+@pytest.mark.cuda
+def test_paged_admission_and_decode_through_the_kernels(cuda):
+    """Llama-3-8B's widths at depth 2 under FAST+fused through a
+    ``PagedBatcher`` (4 slots of 2048, pages of 16): two cold admissions
+    (17 and 100 tokens: K7 over the chunk, K2 route B) and two decode steps
+    (K2 route A; the einsum over the gathered pages, no K6), with every K1,
+    K2 and K7 call held on its own inputs (``chip_smoke.verified_gemms`` and
+    ``verified_attention``). Each logit row behind a token equals, bit for
+    bit, the dense batcher's under ``chip_smoke.einsum_route`` (the einsum
+    over the slab in place of K6)."""
+    import dataclasses
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    from fp8_quantization_tpu_torch.models.llama import LLAMA3_8B, QuantizedLlama
+    from fp8_quantization_tpu_torch.models.paged_kv import PagedBatcher
+    from fp8_quantization_tpu_torch.models.serving import ContinuousBatcher, calibrate_llama
+    from fp8_quantization_tpu_torch.quant.sites import QuantPhase
+
+    spec = dataclasses.replace(LLAMA3_8B, num_layers=2)
+    model = QuantizedLlama(_llama_qc(), spec, device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(0))
+    gen = np.random.default_rng(4)
+    calibrate_llama(model, gen.integers(0, spec.vocab_size, (2, 16)))
+    qp = QuantPhase(phase="fixed", fast=True, fused_sdpa=True)
+    prompts = [gen.integers(0, spec.vocab_size, n).tolist() for n in (17, 100)]
+
+    def serve(batcher):
+        """Admit both prompts, step twice; the logit row behind each token."""
+        rows, target = [], batcher.model
+
+        def recording(tokens, cache, qp_, chunk_attention=False):
+            logits, cache = target(tokens, cache, qp_, chunk_attention=chunk_attention)
+            rows.append(logits)
+            return logits, cache
+
+        batcher.model = recording
+        out = []
+        for p in prompts:
+            batcher.admit(p, max_new_tokens=8)
+            out.append(rows[-1][0, len(p) - 1])
+        for _ in range(2):
+            assert len(batcher.step()) == 2
+            out.extend(rows[-1][:2, 0])
+        torch.cuda.synchronize()
+        return torch.stack(out)
+
+    k6_before = k6.decode_attention.launches
+    paged = PagedBatcher(model, spec, slots=4, num_pages=129, page_size=16, max_seq=2048, qp=qp)
+    with chip_smoke.verified_gemms({}) as calls, chip_smoke.verified_attention({}) as held:
+        got = serve(paged)
+    forwards = len(prompts) + 2
+    assert calls["calls"] == (7 * spec.num_layers + 1) * forwards
+    assert calls["routes"] == {"A", "B"}
+    assert held["K7"] == spec.num_layers * len(prompts)
+    assert held["K1"] == chip_smoke.llama_k1_per_forward(spec) * forwards
+    assert k6.decode_attention.launches == k6_before
+    assert paged.pages_in_use == 2 + 7
+    with chip_smoke.einsum_route():
+        want = serve(ContinuousBatcher(model, spec, slots=4, max_seq=2048, qp=qp))
+    assert bool(torch.isfinite(got).all()) and torch.equal(got, want)

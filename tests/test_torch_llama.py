@@ -83,10 +83,11 @@ def numpy_tree(tree):
 
 class JaxSide:
     """The JAX model calibrated as ``scripts/bench_llama.py`` does (init, an
-    ESTIMATE forward, a fast ``cache_weights`` forward), all jitted."""
+    ESTIMATE forward, a fast ``cache_weights`` forward), all jitted, at
+    ``SPEC`` or the given spec keywords."""
 
-    def __init__(self, calib):
-        self.spec = JSpec(**SPEC)
+    def __init__(self, calib, spec=SPEC):
+        self.spec = JSpec(**spec)
         self.model = JLlama(qc=qc(jc), spec=self.spec)
         self.packed_model = JLlama(qc=qc(jc), spec=self.spec, packed_kv=True)
         calib = jnp.asarray(calib)
@@ -125,8 +126,8 @@ class JaxSide:
         return np.asarray(logits, np.float32), cache
 
 
-def torch_model(variables, packed_kv=False):
-    model = QuantizedLlama(qc(tc), LlamaSpec(**SPEC), packed_kv=packed_kv)
+def torch_model(variables, packed_kv=False, spec=SPEC):
+    model = QuantizedLlama(qc(tc), LlamaSpec(**spec), packed_kv=packed_kv)
     model.load_state_dict(from_jax_variables(numpy_tree(variables)), strict=True)
     return model
 
@@ -313,11 +314,13 @@ def test_packed_kv_toggles_on_the_same_modules(sides):
 
 
 def test_later_slices_raise():
+    """Ring prefill and the mesh-sharded paged batcher belong to a later
+    slice; the paged cache itself is ported (``test_torch_paged.py``)."""
+    from fp8_quantization_tpu_torch.models.paged_kv import PagedBatcher
+
     spec = LlamaSpec(**SPEC)
     with pytest.raises(NotImplementedError, match="later slice"):
         QuantizedLlama(qc(tc), spec, ring_spec=("mesh", "seq"))
     model = QuantizedLlama(qc(tc), spec)
     with pytest.raises(NotImplementedError, match="later slice"):
-        model.layer_0(torch.zeros((1, 1, 32)), *t_cache(1)[:2], 0,
-                      torch.zeros((1, 1), dtype=torch.long), torch.zeros(1, dtype=torch.int32),
-                      FIXED, page_table=torch.zeros((1, 2), dtype=torch.int32))
+        PagedBatcher(model, spec, mesh="mesh")
