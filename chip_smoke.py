@@ -17,7 +17,9 @@ Phases, one line each (any failure exits non-zero; no phase is skipped):
    single product of the E2M5 value space under s2nn2s, and on every single
    product (K = 1) of value space x value space in all eight cases across a
    sweep of result biases (bit for bit); the bit-ops
-   quantizer (K1) on random, zero, subnormal, +-maxval and clip-edge inputs;
+   quantizer (K1) on random, zero, subnormal, +-maxval and clip-edge inputs,
+   also at every mantissa width the MSE search elects (E6M1 ... E1M6, sign 1
+   and 0), with K2's two routes at each of those widths;
    the fused quant GEMM (K2) and the packed-FP8 dequant GEMM (K4) in every
    switch combination at the four dense shapes on a 64-row slice, unaligned
    ones, Llama-3-8B's decode shapes (k/v and down at 1, 2, 4, 16 rows,
@@ -52,6 +54,19 @@ Phases, one line each (any failure exits non-zero; no phase is skipped):
    reference's published flag set, which launches none; and with the
    published flags in the serving modes ``--fast-mode`` (K1, K2),
    ``--fast-mode --packed-weights`` and ``... --chained-acts`` (K1, K4).
+   Then the FP8 paper's MSE range setting on the same flags (MSE weights and
+   acts, the mantissa-width election, two calibration batches): published,
+   ``--fast-mode`` (K1, K2 at the elected widths) and ``--fast-mode
+   --packed-weights`` (K4 on the layers whose elected weight width packs,
+   K2 on the rest), and without the election under ``--fast-mode
+   --packed-weights`` (every dense layer on K4): each with its calibration
+   seconds, ms/img, the elected-width histograms, the packed layers, every
+   site's maxval finite and > 0, and the launches the sites' formats imply;
+   then quantize-after-mult-and-add and the approximate multiplier with the
+   OF/UF adder (plain PyTorch: ``qama_matmul_2d`` and the oracle on every
+   product, no kernel), one eval batch of ``ORACLE_BATCH`` images each (the
+   oracle takes ~9.5 s an image), the oracle's top-1 agreement with the K3
+   run on the same images printed.
    Then ``validate-quantized`` on the CNNs at full width, batch 16:
    ``mobilenet_v2_quantized`` published, approx (K3 on the ungrouped convs
    and the classifier, the oracle on the depthwise ones), ``--fast-mode``
@@ -117,7 +132,11 @@ Phases, one line each (any failure exits non-zero; no phase is skipped):
    state (relative RMS below 1e-2, same top-1: K4 route B), and under FAST
    with ``fused_sdpa=True`` (every K2 and K7 call held to its contract on
    its own inputs and every K1 call to equality, same top-1, relative RMS
-   within ``RMS_LIMIT``); Llama-3-8B under FAST+fused and
+   within ``RMS_LIMIT``); the MSE-calibrated ViT under FAST (K1 and K2 at
+   the elected widths, every call held on its own inputs, the logits within
+   ``RMS_LIMIT``), its searches run again on the host from the inputs the
+   sites saw on the card (a sample of the sites; those that elect another
+   width or maxval counted); Llama-3-8B under FAST+fused and
    PACKED+packed_kv+fused (every K2/K4 and K7 call held to its contract and
    every K1 call to equality; prefill logits within ``RMS_LIMIT``; prefill
    argmax, and the greedy tokens of two prompts through the batcher, equal
@@ -489,6 +508,68 @@ def check_k1(fm, dev):
     return worst
 
 
+# the mantissa widths the MSE search elects among on a signed 8-bit grid
+# (E6M1 ... E1M6), each with its own bias and subnormal edge
+ELECTED_WIDTHS = tuple(range(1, 7))
+# K2 at every width: route A (decode-sized M) and route B
+WIDTH_GEMM_ROWS = (16, SLICE_ROWS)
+
+
+def check_widths(fm, dev):
+    """K1 and both routes of K2 at every width the MSE search can elect,
+    against their plain versions: K1 equal on the edge inputs of
+    :func:`k1_inputs`, sign 1 and 0; K2 (f32 x quantized on the load and
+    bf16 x, with and without the requant, at 768 x 768) route A equal and
+    route B within ``within_requant_step``, its act and res scalars and its
+    weights on the same width. Returns the worst |d| of each."""
+    from fp8_quantization_tpu_torch.numerics.fp8_ste import quantize_to_fp8_ste
+
+    rng = np.random.default_rng(13)
+    worst = {"K1": 0.0, "K2": 0.0}
+
+    def bias_of(maxval, mant, sign):
+        return int(quantize_to_fp8_ste(torch.zeros(1), 8, torch.tensor([maxval]), float(mant),
+                                       sign)[1][0])
+
+    for mant in ELECTED_WIDTHS:
+        for sign in (1, 0):
+            x = torch.from_numpy(k1_inputs(rng, 3.0)).to(dev)
+            bias = torch.tensor(float(bias_of(3.0, mant, sign)), device=dev)
+            ours = fm.quantize_block(x, torch.tensor(3.0, device=dev), bias, mant, sign)
+            plain = fm.quantize_block_plain(x, 3.0, bias, mant, sign)
+            worst["K1"] = max(worst["K1"], float((ours - plain).abs().nan_to_num(0.0).max()))
+            if not torch.equal(ours, plain):
+                raise SystemExit(f"K1 differs from its plain version at width {mant}, sign {sign}")
+        act = device_qscalars(dev, 4.0, bias_of(4.0, mant, 1), mant, 1)
+        res = device_qscalars(dev, 8.0, bias_of(8.0, mant, 1), mant, 1)
+        fractions, routes = [], []
+        for m in WIDTH_GEMM_ROWS:
+            x, wq, _ = gemm_operands(m, 768, 768, dev, seed=100 * mant + m, mant=mant)
+            w16 = wq.to(torch.bfloat16)
+            xq = fm.quantize_block_plain(x, *act)
+            for quantize_x in (True, False):
+                xin = x if quantize_x else xq.to(torch.bfloat16)
+                plain_sum = fm.fused_quant_matmul_plain(xin, w16, act, quantize_x=quantize_x)
+                for requant in (False, True):
+                    ours = fm.fused_quant_matmul(xin, w16, act, res, quantize_x=quantize_x,
+                                                 requantize_out=requant)
+                    plain_q = fm.quantize_block_plain(plain_sum, *res) if requant else plain_sum
+                    route, ok, frac = gemm_verdict(fm, ours, plain_sum, xq, wq,
+                                                   res if requant else None, plain_q)
+                    worst["K2"] = max(worst["K2"], float((ours - plain_q).abs()
+                                                         .nan_to_num(0.0).max()))
+                    fractions.append(frac)
+                    if not ok:
+                        raise SystemExit(f"K2 route {route} breaks its contract at width {mant} "
+                                         f"(quantize_x={quantize_x}, requant={requant})")
+            routes.append(route)
+        phase("kernels", f"width E{7 - mant}M{mant}: K1 equal to plain (sign 1 and 0); K2 at "
+                         f"{'/'.join(map(str, WIDTH_GEMM_ROWS))} x 768 x 768 routes {routes} "
+                         f"within contract (min equal fraction {min(fractions):.4f}); worst "
+                         f"|d| K1 {worst['K1']:.3g}, K2 {worst['K2']:.3g}")
+    return worst
+
+
 def gemm_operands(m, k, n, dev, seed, mant=4):
     """x: (M, K) f32 of unit scale; the grid (K, N) weights of a calibrated
     per-channel E3M4 quantizer, some rows tiny (subnormal codes), with their
@@ -736,6 +817,182 @@ def run_serving(cli, counters, mode):
     if not ok:
         raise SystemExit(f"--{mode} validate-quantized: wrong launch counts or bad metrics")
     return out, ms, counts
+
+
+def _flags(argv, **values):
+    """``argv`` with the value after each ``--flag`` replaced (keys with
+    ``_`` for ``-``) and any ``old=new`` flag swap under ``swap``."""
+    out = list(argv)
+    for swap_from, swap_to in values.pop("swap", {}).items():
+        out = [swap_to if f == swap_from else f for f in out]
+    for key, value in values.items():
+        i = out.index("--" + key.replace("_", "-"))
+        out[i + 1] = str(value)
+    return out
+
+
+# The FP8 paper's MSE range setting on the published flags: MSE weights and
+# activations with the mantissa-width election (the CLI's default
+# --fp8-mse-include-mantissa-bits), two calibration batches (the first
+# chooses the search grids, the second adds to their MSEs)
+MSE_FLAGS = _flags(PUBLISHED_FLAGS, weight_quant_method="MSE", act_quant_method="MSE",
+                   num_est_batches=2, swap={"--no-fp8-mse-include-mantissa-bits":
+                                            "--fp8-mse-include-mantissa-bits"})
+MSE_RUNS = {
+    "mse published": MSE_FLAGS,
+    "mse fast": MSE_FLAGS + ["--fast-mode"],
+    "mse packed": MSE_FLAGS + ["--fast-mode", "--packed-weights"],
+    # every dense layer at --fp8-mantissa-bits: all pack
+    "mse fixed-width packed": _flags(MSE_FLAGS, swap={
+        "--fp8-mse-include-mantissa-bits": "--no-fp8-mse-include-mantissa-bits"})
+    + ["--fast-mode", "--packed-weights"],
+}
+MSE_EVALS = 2
+# the plain-PyTorch run methods on the published flags (and the approx
+# ones), one eval batch each, of fewer images: the OF/UF oracle takes ~9.5 s
+# an image on the card (PERF.md §6, PR 13); its eval batch is the first
+# ORACLE_BATCH images of the K3 run's first eval batch (one seeded draw)
+ORACLE_EVALS = 1
+ORACLE_BATCH = 2
+QAMA_FLAGS = _flags(PUBLISHED_FLAGS, max_eval_batches=ORACLE_EVALS, batch_size=ORACLE_BATCH,
+                    swap={"--no-quantize-after-mult-and-add": "--quantize-after-mult-and-add"})
+OFUF_FLAGS = _flags(APPROX_FLAGS, max_eval_batches=ORACLE_EVALS, batch_size=ORACLE_BATCH) + [
+    "--sim_hw_add_OFUF", "--with_OF_opt", "--with_UF_opt"]
+
+
+@contextlib.contextmanager
+def captured_runs(cli, record):
+    """Records, for every ``validate-quantized`` run inside, the model
+    (``record["model"]``), the wall seconds of its calibration
+    (``record["calib_s"]``, synced) and the top-1 predictions of its eval
+    batches (``record["preds"]``)."""
+    from fp8_quantization_tpu_torch.eval import driver
+
+    setup, calibrate, update = cli.setup, driver.calibrate, driver.update_metrics
+    record.update(preds=[])
+
+    def setup_call(args):
+        out = setup(args)
+        record["model"] = out[0]
+        return out
+
+    def calibrate_call(model, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = calibrate(model, *args, **kw)
+        torch.cuda.synchronize()
+        record["calib_s"] = time.perf_counter() - t0
+        return out
+
+    def update_call(state, logits, labels, **kw):
+        record["preds"].append(logits.float().argmax(-1).cpu())
+        return update(state, logits, labels, **kw)
+
+    cli.setup, driver.calibrate, driver.update_metrics = setup_call, calibrate_call, update_call
+    try:
+        yield record
+    finally:
+        cli.setup, driver.calibrate, driver.update_metrics = setup, calibrate, update
+
+
+def site_report(model):
+    """The elected widths of a calibrated model: histograms over the weight
+    sites and over the act/res sites, the dense layers packed (K4) and
+    unpacked (K2), and whether every site's ``maxval`` is finite and > 0."""
+    from collections import Counter
+
+    from fp8_quantization_tpu_torch.ops.layers import QuantDense
+    from fp8_quantization_tpu_torch.quant.sites import QuantSite
+
+    weights, acts, bad = Counter(), Counter(), []
+    for name, m in model.named_modules():
+        if isinstance(m, QuantSite):
+            width = int(torch.round(m.mantissa_bits[0]))
+            (weights if name.endswith("weight_quantizer") else acts)[width] += 1
+            mv = m.maxval
+            if not bool(torch.isfinite(mv).all() and (mv > 0).all()):
+                bad.append(name)
+    dense = [m for m in model.modules() if isinstance(m, QuantDense)]
+    packed = sum(m.w_codes is not None for m in dense)
+    return {"weight_widths": dict(sorted(weights.items())),
+            "act_widths": dict(sorted(acts.items())), "dense": len(dense), "packed": packed,
+            "bad_maxval": bad}
+
+
+def run_mse(cli, counters, name):
+    """One MSE ``validate-quantized`` run of ``MSE_RUNS`` with the counts
+    zeroed just before it: the calibration seconds, ms/img, the elected
+    widths, the packed layers, every site's maxval finite and > 0, and the
+    launches held to the counts the sites' formats imply (K1 at every
+    per-tensor site, K2 on every unpacked dense product, K4 on every packed
+    one)."""
+    argv = MSE_RUNS[name]
+    zero_counts(counters)
+    with captured_runs(cli, {}) as rec:
+        out, ms = run_cli(cli, argv)
+    counts = read_counts(counters)
+    report = site_report(rec.pop("model"))
+    fast = "--fast-mode" in argv
+    packing = "--packed-weights" in argv
+    packed = report["packed"] if packing else 0
+    want = {key: 0 for key in counts}
+    if fast:
+        # --packed-weights first caches the weights in one forward of the
+        # example batch, every dense product on K2
+        want.update(K1=K1_LAUNCHES_PER_FORWARD * (MSE_EVALS + packing),
+                    K2=(DENSE_LAUNCHES_PER_FORWARD - packed) * MSE_EVALS
+                    + DENSE_LAUNCHES_PER_FORWARD * packing,
+                    K4=packed * MSE_EVALS)
+    eval_imgs = out["images"] - BATCH * 2
+    eval_ms = 1e3 * (out["validate_s"] - rec["calib_s"]) / eval_imgs
+    phase("main", f"vit_quantized {name}: {out['metrics']}, calibration "
+                  f"{rec['calib_s']:.2f} s over 2 batches of {BATCH}, {ms:.2f} ms/img over "
+                  f"{out['images']} images (eval {eval_ms:.2f} ms/img; {card_power()}); elected "
+                  f"widths: weight sites {report['weight_widths']}, act/res sites "
+                  f"{report['act_widths']}; dense layers packed (K4) {packed}, on K2 "
+                  f"{report['dense'] - packed if fast else 0}; sites with a bad maxval "
+                  f"{report['bad_maxval']}; launches {counts} (expected {want})")
+    if (counts != want or report["bad_maxval"] or not np.isfinite(out["metrics"]["loss"])
+            or report["dense"] != DENSE_LAUNCHES_PER_FORWARD):
+        raise SystemExit(f"{name} validate-quantized: wrong launch counts, a bad maxval or "
+                         "bad metrics")
+    if name == "mse fixed-width packed" and packed != DENSE_LAUNCHES_PER_FORWARD:
+        raise SystemExit("the fixed-width MSE run left a dense layer unpacked")
+    return {"ms": ms, "eval_ms": eval_ms, "calib_s": rec["calib_s"], "counts": counts,
+            **report}
+
+
+def run_special(cli, counters, name, argv, k3_preds):
+    """A run method simulated in plain PyTorch, one eval batch: no hand
+    kernel launches; quantize-after-mult-and-add calls ``qama_matmul_2d``
+    on every dense product and the patch conv, the OF/UF adder the oracle on
+    every approximate product (the CLI's init forward, the calibration batch
+    and the eval batch). Prints ms/img and, for the oracle, the top-1
+    agreement with the K3 run's predictions on the same batch."""
+    zero_counts(counters)
+    with captured_runs(cli, {}) as rec, counted_calls({}, SPECIAL_COUNTED) as calls:
+        out, ms = run_cli(cli, argv)
+    counts = read_counts(counters)
+    rec.pop("model")
+    key = "qama" if name == "qama" else "oracle"
+    want = LAUNCHES_PER_FORWARD * (1 + 1 + ORACLE_EVALS)
+    agree = None
+    if k3_preds is not None:
+        ours, k3 = rec["preds"][0], k3_preds[0][:ORACLE_BATCH]
+        agree = float((ours == k3).float().mean())
+    eval_ms = 1e3 * (out["validate_s"] - rec["calib_s"]) / (out["images"] - ORACLE_BATCH)
+    phase("main", f"vit_quantized {name}: {out['metrics']}, {ms:.2f} ms/img over "
+                  f"{out['images']} images (calibration {rec['calib_s']:.2f} s, eval "
+                  f"{eval_ms:.2f} ms/img; {card_power()}), {key} calls {calls[key]} (expected "
+                  f"{want}), launches {counts}"
+                  + (f", top-1 agreement with the K3 run on the same batch {agree:.4f}"
+                     if agree is not None else ""))
+    if (any(counts.values()) or calls[key] != want
+            or calls["oracle" if key == "qama" else "qama"]
+            or not np.isfinite(out["metrics"]["loss"])):
+        raise SystemExit(f"{name} validate-quantized: a kernel launched, wrong call counts or "
+                         "bad metrics")
+    return {"ms": ms, "eval_ms": eval_ms, "calib_s": rec["calib_s"], "agreement": agree}
 
 
 def run_cli(cli, argv):
@@ -2015,6 +2272,129 @@ def check_vit_fused(cli, dev, spec, counters):
         raise SystemExit("ViT FAST+fused: kernels and plain versions disagree")
 
 
+# the per-channel weight sites' channels searched again on the host, and
+# every HOST_SITE_STRIDE-th per-tensor site (all of them take ~28 s of the
+# host's cores at depth 2)
+HOST_CHANNELS = 32
+HOST_SITE_STRIDE = 3
+
+
+def host_election(model, inputs):
+    """The sites' searches of one MSE calibration batch run again on the
+    host, from the same zero state, on the inputs each site saw on the card
+    (``inputs``: site name -> tensor on the card): every
+    ``HOST_SITE_STRIDE``-th per-tensor site whole, the per-channel (weight)
+    sites on their first ``HOST_CHANNELS`` channels. Counts the sampled
+    per-tensor sites whose elected width or ``maxval`` differs from the
+    card's, and the sampled channels whose best width (its vote) or best
+    candidate at the card's elected width differs."""
+    from fp8_quantization_tpu_torch.quant import estimators
+    from fp8_quantization_tpu_torch.quant.sites import QuantSite
+
+    sites = dict(model.named_modules())
+    tensor_diff, tensor_n, chan_diff, chan_n = [], 0, [], 0
+    per_tensor = [name for name in inputs if not sites[name].qcfg.per_channel]
+    sampled = set(per_tensor[::HOST_SITE_STRIDE])
+    for name, x in inputs.items():
+        site: QuantSite = sites[name]
+        pc = site.qcfg.per_channel
+        if not pc and name not in sampled:
+            continue
+        if pc:
+            x = x.narrow(site.channel_axis, 0, min(HOST_CHANNELS, x.shape[site.channel_axis]))
+        c = x.shape[site.channel_axis] if pc else 1
+        state = estimators.init(site.ecfg, site.qcfg, c, per_channel=pc)
+        state, (_, maxval, mbits) = estimators.update(site.ecfg, site.qcfg, state, x.cpu(), pc,
+                                                      site.channel_axis)
+        if not pc:
+            tensor_n += 1
+            if (float(mbits[0]) != float(site.mantissa_bits[0])
+                    or float(maxval[0]) != float(site.maxval[0].cpu())):
+                tensor_diff.append(name)
+            continue
+        card = site.mses[:, :, :c].cpu()
+        width = int(torch.round(site.mantissa_bits[0])) - 1 if card.shape[0] > 1 else 0
+        votes = torch.argmin(state["mses"].amin(dim=1), dim=0)
+        cand = torch.argmin(state["mses"][width], dim=0)
+        differs = ((votes != torch.argmin(card.amin(dim=1), dim=0))
+                   | (cand != torch.argmin(card[width], dim=0)))
+        chan_n += c
+        if bool(differs.any()):
+            chan_diff.append((name, int(differs.sum())))
+    return tensor_n, tensor_diff, chan_n, chan_diff
+
+
+def check_mse_model(cli, dev, spec, counters):
+    """Phase 5: ViT-B/16 at depth 2 calibrated with the MSE search (one
+    batch), under FAST through the kernels (K1 and K2 at the elected widths)
+    and their plain versions: every K2 call held to its contract and every
+    K1 call to equality on its own inputs, the logits to ``RMS_LIMIT`` and
+    the same top-1; and the sites' searches run again on the host from the
+    inputs they saw on the card (:func:`host_election`)."""
+    from fp8_quantization_tpu_torch.quant.sites import FAST, FIXED, QuantSite
+
+    inputs, hooks = {}, []
+
+    def record(name):
+        def hook(site, args, kwargs):
+            qp = args[1] if len(args) > 1 else kwargs.get("qp", FIXED)
+            if qp.estimating:
+                inputs[name] = args[0].detach().float().clone()
+        return hook
+
+    from fp8_quantization_tpu_torch.models import vit as vit_mod
+    build = vit_mod.QuantizedViT
+
+    def capture(*args, **kw):
+        m = build(*args, **kw)
+        for name, site in m.named_modules():
+            if isinstance(site, QuantSite):
+                hooks.append(site.register_forward_pre_hook(record(name), with_kwargs=True))
+        return m
+
+    vit_mod.QuantizedViT = capture
+    try:
+        model, qc, xt = calibrated_model(cli, MSE_FLAGS, dev, spec)
+    finally:
+        vit_mod.QuantizedViT = build
+        for h in hooks:
+            h.remove()
+    report = site_report(model)
+
+    def forward():
+        with torch.no_grad():
+            return model(xt, FAST).float()
+
+    zero_counts(counters)
+    with verified_gemms({}) as calls, verified_attention({}) as held:
+        logits = forward()
+    counts = read_counts(counters)
+    with plain_kernels():
+        plain = forward()
+    rms_ok, rms_line = rms_verdict(rel_rms(logits, plain), forward, plain)
+    same = bool((logits.argmax(-1) == plain.argmax(-1)).all())
+    t0 = time.perf_counter()
+    tensor_n, tensor_diff, chan_n, chan_diff = host_election(model, inputs)
+    host_s = time.perf_counter() - t0
+    dense = 6 * spec.num_layers + 1
+    ok = (counts["K2"] == dense and counts["K1"] > 0 and calls["calls"] == dense
+          and held["K1"] == counts["K1"] and read_counts(counters) == counts and same
+          and rms_ok and bool(torch.isfinite(logits).all()) and not report["bad_maxval"])
+    phase("model", f"ViT-B/16 MSE FAST, depth {spec.num_layers}, batch 1: elected widths weight "
+                   f"{report['weight_widths']}, act/res {report['act_widths']}; {calls['calls']} "
+                   f"K2 calls (routes {sorted(calls['routes'])}) within contract (min equal "
+                   f"fraction {calls['min_equal']:.4f}), {held['K1']} K1 calls equal; "
+                   f"{rms_line}, same top-1 {same}, launches {counts}; the host's search from "
+                   f"the card's inputs ({host_s:.1f} s): {len(tensor_diff)} of {tensor_n} "
+                   f"sampled per-tensor sites elect another width or maxval {tensor_diff}, "
+                   f"{sum(n for _, n in chan_diff)} of {chan_n} sampled weight channels another "
+                   f"vote or candidate {chan_diff}; ok={ok}")
+    if not ok:
+        raise SystemExit("ViT MSE FAST: kernels and plain versions disagree")
+    return {"tensor_sites": tensor_n, "tensor_diff": len(tensor_diff), "channels": chan_n,
+            "channel_diff": sum(n for _, n in chan_diff)}
+
+
 def prefix_prompts(spec):
     """The prefix runs' prompts: one seeded 256-token head and a unique
     seeded tail each, of ``PREFIX_TAILS`` tokens."""
@@ -2769,17 +3149,24 @@ CNN_RUNS = ([("mobilenet_v2_quantized", m) for m in ("published", "approx", "fas
                ("vit_quantized", "int8 packed"), ("vit_quantized", "int8 chained")])
 
 
+# the plain-PyTorch paths a run counts, as (module of ops, function, key):
+# the CNNs' oracle and int8 conv, the special run methods' products
+CNN_COUNTED = (("layers", "approx_matmul_oracle", "oracle"),
+               ("fastpath", "quantized_conv_int8", "int8_conv"))
+SPECIAL_COUNTED = (("layers", "approx_matmul_oracle", "oracle"),
+                   ("layers", "qama_matmul_2d", "qama"))
+
+
 @contextlib.contextmanager
-def counted_calls(record):
-    """Counts the calls of the grouped convs' oracle
-    (``layers.approx_matmul_oracle``) and of the int8 conv
-    (``fastpath.quantized_conv_int8``) in ``record["oracle"]`` and
-    ``record["int8_conv"]``; neither is a hand kernel with a counter of its
-    own."""
+def counted_calls(record, counted=CNN_COUNTED):
+    """Counts the calls of each function of ``counted`` in ``record[key]``:
+    by default the grouped convs' oracle (``layers.approx_matmul_oracle``)
+    and the int8 conv (``fastpath.quantized_conv_int8``); neither is a hand
+    kernel with a counter of its own."""
     from fp8_quantization_tpu_torch.ops import fastpath, layers
 
-    swaps = [(layers, "approx_matmul_oracle", "oracle"),
-             (fastpath, "quantized_conv_int8", "int8_conv")]
+    mods = {"layers": layers, "fastpath": fastpath}
+    swaps = [(mods[mod], name, key) for mod, name, key in counted]
     saved = [getattr(mod, name) for mod, name, _ in swaps]
     for (mod, name, key), fn in zip(swaps, saved):
         record[key] = 0
@@ -3226,6 +3613,9 @@ def main() -> int:
     max_err, k3_times = check_kernel_against_plain(k3, dev, 1e6 * sm_clock_mhz)
     gemm_err = check_gemms(fm, dm, dev)
     gemm_err["K1"] = check_k1(fm, dev)
+    width_err = check_widths(fm, dev)
+    gemm_err["K1"] = max(gemm_err["K1"], width_err["K1"])
+    gemm_err["K2"] = max(gemm_err["K2"], width_err["K2"])
     attention_err, k7_vit = check_attention(LLAMA3_8B, dev)
     gemm_err.update(attention_err)
     check_k5(dm, dev)
@@ -3236,7 +3626,8 @@ def main() -> int:
     # 4. the main path: each run with every launch count zeroed just before
     counters = KERNELS
     zero_counts(counters)
-    out, approx_ms = run_cli(cli, APPROX_FLAGS)
+    with captured_runs(cli, {}) as k3_run:
+        out, approx_ms = run_cli(cli, APPROX_FLAGS)
     approx_counts = read_counts(counters)
     # the CLI's init forward (a zeros batch of one), one calibration batch
     # and two eval batches
@@ -3255,6 +3646,14 @@ def main() -> int:
     if any(pub_counts.values()) or not np.isfinite(out_pub["metrics"]["loss"]):
         raise SystemExit("published validate-quantized launched a kernel or gave bad metrics")
     serving = {mode: run_serving(cli, counters, mode) for mode in SERVING_FLAGS}
+    # the MSE range setting with the mantissa-width election, and the run
+    # methods simulated in plain PyTorch
+    t_mse = time.perf_counter()
+    mse = {name: run_mse(cli, counters, name) for name in MSE_RUNS}
+    special = {"qama": run_special(cli, counters, "qama", QAMA_FLAGS, None),
+               "OF/UF oracle": run_special(cli, counters, "OF/UF oracle", OFUF_FLAGS,
+                                           k3_run["preds"])}
+    mse_s = time.perf_counter() - t_mse
     # MobileNetV2 and ResNet-18/50 at full width, batch 16, and ViT-B/16's
     # uniform serving at the same batch
     t_cnn = time.perf_counter()
@@ -3282,6 +3681,9 @@ def main() -> int:
     check_model(cli, APPROX_FLAGS, dev, depth2)
     check_serving_model(cli, dev, depth2, counters)
     check_vit_fused(cli, dev, depth2, counters)
+    t0 = time.perf_counter()
+    mse_model = check_mse_model(cli, dev, depth2, counters)
+    mse_s += time.perf_counter() - t0
     t0 = time.perf_counter()
     check_cnn_models(cli, dev, counters)
     check_cnn_serving(cli, dev, counters)
@@ -3341,6 +3743,10 @@ def main() -> int:
         **({"prefix_spec_launches": {run: r["counts"][key] for run, r in prefix_spec.items()
                                      if r["counts"][key]}}
            if key in ("K1", "K2", "K4", "K6", "K7") else {}),
+        # the MSE runs of phase 4 (launches per run: K1/K2 at the elected
+        # widths, K4 on the layers whose elected width packs)
+        **({"mse_launches": {run: r["counts"][key] for run, r in mse.items()}}
+           if key in ("K1", "K2", "K4") else {}),
         # the paged runs of phase 4 and their dense einsum-route references
         # (launches per run; no K6 on a paged target decode)
         **({"paged_launches": {run: r["counts"][key] for run, r in paged.items()}}
@@ -3382,6 +3788,16 @@ def main() -> int:
                   "forward: " + ", ".join(
                       f"{arch} {t['ms']:.3f} ms (cuDNN f32 {t['library_ms']:.3f}, bound "
                       f"{t['bound_ms']:.3f})" for arch, t in int8_conv.items())
+                  + "; MSE runs (calibration s over 2 batches, ms/img, eval ms/img): "
+                  + ", ".join(f"{run} {r['calib_s']:.2f} s, {r['ms']:.2f}, {r['eval_ms']:.2f}"
+                              for run, r in mse.items())
+                  + "; " + ", ".join(f"{run} {r['ms']:.2f} ms/img (eval {r['eval_ms']:.2f})"
+                                     for run, r in special.items())
+                  + f", OF/UF top-1 agreement with K3 {special['OF/UF oracle']['agreement']:.4f}"
+                  f"; MSE depth-2 host re-search: {mse_model['tensor_diff']} of "
+                  f"{mse_model['tensor_sites']} per-tensor sites, {mse_model['channel_diff']} of "
+                  f"{mse_model['channels']} sampled channels differ; this slice's runs and "
+                  f"checks {mse_s:.1f} s"
                   + f"; {served}; per batch-{BATCH} forward (K1-K4) or serving run (K5, K6, "
                   "K7): "
                   f"{per_forward}; K7 per batch-{BATCH} ViT-B/16 forward {k7_vit['ms']:.4f} ms "

@@ -12,8 +12,12 @@ The port runs ``vit_quantized``, ``mobilenet_v2_quantized``,
 on seeded random weights and synthetic data, in the fixed phase (with
 ``--reestimate-bn-batches`` for the CNNs' BN) and in the serving modes
 ``--fast-mode``, ``--packed-weights`` and ``--chained-acts``, with the FP
-quantizer and with the uniform ones (int8 and int4 conv and dense serving).
-``demo_quantized``, checkpoints and the ImageNet loaders raise.
+quantizer and with the uniform ones (int8 and int4 conv and dense serving),
+with every range estimator (the MSE search with its mantissa-width
+election among them) and every run method (the approximate multiplier, its
+OF/UF adder, self-check and debug modes through the plain oracle, and
+quantize-after-mult-and-add). ``demo_quantized``, checkpoints and the
+ImageNet loaders raise.
 ``--cuda`` (the default) runs on the GPU and raises when there is none;
 ``--no-cuda`` runs on the CPU.
 """
@@ -282,7 +286,7 @@ def setup(args):
     """(model, device, qc, example): the device, the configuration, the model
     with its init forward done and the zeros example batch it was done on,
     as ``validate-quantized`` starts."""
-    from .quant.sites import ESTIMATE
+    from .quant.sites import ESTIMATE, reset_search_grids
 
     _reject_unported(args)
     device = select_device(args.cuda)
@@ -296,9 +300,12 @@ def setup(args):
     model, example = build_model(args.architecture, qc, device, generator)
     # the JAX CLI initializes its variables with an ESTIMATE-phase forward of
     # a zeros example (flax ``model.init``), which seeds every site's range
-    # state; the port does the same so both calibrate from the same state
+    # state; the port does the same so both calibrate from the same state,
+    # but for the MSE and cross-entropy searches, whose grids it leaves to
+    # the first calibration batch (``quant.sites.reset_search_grids``)
     with torch.no_grad():
         model(example, ESTIMATE)
+    reset_search_grids(model)
     return model, device, qc, example
 
 

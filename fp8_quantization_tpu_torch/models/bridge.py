@@ -6,7 +6,10 @@ nested dicts of numpy arrays, into a ``state_dict`` for the counterpart
 module here. The layouts already agree (``(in, out)`` dense kernels,
 ``(*K, I, O)`` conv kernels), so the bridge is a rename: flax paths joined
 with dots, with the per-site ``q`` / ``est`` dict levels dropped, because a
-QuantSite keeps both states as its own buffers. The ``quant_cache``
+QuantSite keeps both states as its own buffers (the estimator's under its
+state keys: ``xmin``/``xmax`` of the min/max estimators, ``search_grid``
+with ``mses`` (MSE) or ``losses`` (cross-entropy) of the searches, and
+``count``). The ``quant_cache``
 collection (cached quantized weights and packed codes) maps onto the
 layers' cache buffers of the same names (``ops.layers.CACHE_KEYS``), and
 ``batch_stats`` (a BN layer's running ``mean`` and ``var``) onto

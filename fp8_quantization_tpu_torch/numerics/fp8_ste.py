@@ -14,9 +14,18 @@ Math (identical to the JAX package):
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .rounding import exp2_exact, round_ste
+
+
+def _mant_and_bias(n_bits: int, maxval, mantissa_bits, sign_b):
+    """(M, bias) of the grid: the mantissa width clamped to the format and
+    the derived exponent bias."""
+    M = torch.minimum(torch.clamp(round_ste(mantissa_bits), min=1.0), n_bits - sign_b)
+    E = n_bits - sign_b - M
+    return M, torch.round(2.0 ** E - torch.log2(maxval) + torch.log2(2 - 2.0 ** (-M)) - 1)
 
 
 def quantize_to_fp8_ste(x_float, n_bits: int, maxval, mantissa_bits, sign_bits):
@@ -32,13 +41,9 @@ def quantize_to_fp8_ste(x_float, n_bits: int, maxval, mantissa_bits, sign_bits):
     mantissa_bits = torch.as_tensor(mantissa_bits, dtype=dt, device=dev)
     sign_b = torch.as_tensor(sign_bits, device=dev).to(dt)
 
-    M = torch.minimum(torch.clamp(round_ste(mantissa_bits), min=1.0), n_bits - sign_b)
-    E = n_bits - sign_b - M
-
     if maxval.ndim >= 1 and maxval.shape[0] != 1 and maxval.ndim != x_float.ndim:
         maxval = maxval.reshape((-1,) + (1,) * (x_float.ndim - 1))
-
-    bias = torch.round(2.0 ** E - torch.log2(maxval) + torch.log2(2 - 2.0 ** (-M)) - 1)
+    M, bias = _mant_and_bias(n_bits, maxval, mantissa_bits, sign_b)
 
     minval = torch.where(sign_b == 1, -maxval, torch.zeros_like(maxval))
     xc = torch.minimum(torch.maximum(x_float, minval), maxval)
@@ -69,9 +74,7 @@ def quantize_to_fp8_ste_affine(x_raw, a_scale, a_bias, lo, hi, n_bits: int, maxv
     mantissa_bits = torch.as_tensor(mantissa_bits, dtype=torch.float32, device=dev)
     sign_b = torch.as_tensor(sign_bits, device=dev).to(torch.float32)
 
-    M = torch.minimum(torch.clamp(round_ste(mantissa_bits), min=1.0), n_bits - sign_b)
-    E = n_bits - sign_b - M
-    bias = torch.round(2.0 ** E - torch.log2(maxval) + torch.log2(2 - 2.0 ** (-M)) - 1)
+    M, bias = _mant_and_bias(n_bits, maxval, mantissa_bits, sign_b)
 
     minval = torch.where(sign_b == 1, -maxval, torch.zeros_like(maxval))
     lo_eff = minval if lo is None else torch.clamp(minval, min=lo)
@@ -93,3 +96,70 @@ def default_maxval(n_bits: int, mantissa_bits: int) -> float:
     ebits = n_bits - mantissa_bits - 1
     default_bias = 2.0 ** (ebits - 1)
     return (2 - 2.0 ** -mantissa_bits) * 2.0 ** (2 ** ebits - 1 - default_bias)
+
+
+def quantize_to_fp8_candidates(x, n_bits: int, maxval, mantissa_bits, sign_bits,
+                               shared=None):
+    """:func:`quantize_to_fp8_ste`'s values (no gradient) for a batch of
+    candidate grids, in fewer passes over the broadcast tensor: the MSE range
+    search quantizes every element once per candidate ``maxval``.
+
+    ``x`` (1, C, N) and ``maxval`` (K, C, 1) broadcast to the (K, C, N)
+    result. With ``b`` the bias and ``e`` an element's IEEE exponent, the
+    step is ``2^(max(e, 1 - b) - M)``: the same integer as the plain
+    version's ``max(e + b, 1) - M - b``, written into an f32 exponent field
+    (``max`` on the exponent field ignores the sign bit and the mantissa).
+    Grids whose step could leave the normal floats, or whose bias is not
+    finite, take :func:`quantize_to_fp8_ste` itself, so the two agree bit for
+    bit everywhere. ``shared`` (a dict, empty on the first call) keeps the
+    clipped values and their exponent fields for further calls with the same
+    ``x``, ``maxval`` and ``sign_bits`` at other widths."""
+    dev = x.device
+    maxval = torch.as_tensor(maxval, dtype=torch.float32, device=dev)
+    mbits = torch.as_tensor(mantissa_bits, dtype=torch.float32, device=dev)
+    sign_b = torch.as_tensor(sign_bits, device=dev).to(torch.float32)
+    M, bias = _mant_and_bias(n_bits, maxval, mbits, sign_b)
+    floor_e = 1 - bias                       # the subnormal binade's exponent
+    safe = (torch.isfinite(bias) & (floor_e - M >= -126) & (floor_e <= 127)).all()
+    if not bool(safe):
+        with torch.no_grad():
+            return quantize_to_fp8_ste(x, n_bits, maxval, mbits, sign_b)[0]
+    shared = {} if shared is None else shared
+    if not shared:
+        minval = torch.where(sign_b == 1, -maxval, torch.zeros_like(maxval))
+        shared["xc"] = xc = torch.clamp(x, minval, maxval)
+        shared["field"] = torch.bitwise_and(xc.view(torch.int32), 0x7F800000)
+    xc = shared["xc"]
+    floor_field = torch.bitwise_left_shift((floor_e + 127).to(torch.int32), 23)
+    m_field = torch.bitwise_left_shift(M.to(torch.int32), 23)
+    step = torch.maximum(shared["field"], floor_field).sub_(m_field).view(torch.float32)
+    return torch.div(xc, step).round_().mul_(step)
+
+
+def fp8_grid(num_total_bits: int = 8, num_exponent_bits: int = 4, bias: int = 8) -> np.ndarray:
+    """Every representable value of the format, sorted ascending (host-side:
+    the idempotency tests and the analytic error model use it)."""
+    num_fraction_bits = num_total_bits - 1 - num_exponent_bits
+    all_values = []
+    for s in (-1.0, 1.0):
+        for e_enc in range(2 ** num_exponent_bits):
+            is_subnormal = 1 if (e_enc - bias) == -bias else 0
+            for f_enc in range(2 ** num_fraction_bits):
+                frac = f_enc * 2.0 ** -num_fraction_bits + 1 - is_subnormal
+                all_values.append(s * 2.0 ** (e_enc - bias + is_subnormal) * frac)
+    return np.sort(np.array(all_values))
+
+
+def fp8_grid_scaled(num_total_bits: int, num_exp_bits: int, exp_bias: int,
+                    range_limit_fp: float) -> np.ndarray:
+    """:func:`fp8_grid` rescaled so its largest magnitude is ``range_limit_fp``."""
+    grid = fp8_grid(num_total_bits, num_exp_bits, exp_bias)
+    float_scale = np.max(np.abs(grid)) / range_limit_fp
+    return grid / float_scale
+
+
+def fp8_max_value(num_exponent_bits: int = 4, bias: int = 8) -> float:
+    """Largest representable magnitude of an 8-bit format."""
+    num_fraction_bits = 7 - num_exponent_bits
+    max_frac = 1 - 2.0 ** -num_fraction_bits
+    return 2.0 ** (2 ** num_exponent_bits - 1 - bias) * (1 + max_frac)

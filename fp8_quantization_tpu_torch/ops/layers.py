@@ -6,14 +6,19 @@ Each layer holds up to three QuantSites (``activation_quantizer``,
 ``res_quantizer``, ``weight_quantizer``) and runs
 
   input-quant -> weight-quant -> matmul/conv -> res-quant ->
-  [approx rerun] -> fused activation -> output-quant
+  [approx | quantize-after-mult-and-add rerun] -> fused activation ->
+  output-quant
 
-With the approx run method armed, the plain product runs first only in the
+With a special run method armed, the plain product runs first only in the
 ``ESTIMATE`` phase or under ``original_quantize_res`` (it drives the
-res-quantizer's range), and the approximate product replaces it: through
-the K3 kernel for dense layers and ungrouped convs, through the jnp
-oracle's semantics (:func:`approx_matmul_oracle`) for grouped and depthwise
-convs, whose groups the JAX package ``jax.vmap``s over its oracle.
+res-quantizer's range), and the special product replaces it. The
+approximate multiplier goes through the K3 kernel for dense layers and
+ungrouped convs, and through the jnp oracle's semantics
+(:func:`approx_matmul_oracle`) for grouped and depthwise convs, whose groups
+the JAX package ``jax.vmap``s over its oracle, and wherever the flags ask
+for what only the oracle simulates (:func:`approx_matmul_2d`).
+Quantize-after-mult-and-add (:func:`qama_matmul_2d`) is plain PyTorch on
+every device.
 
 A layer creates exactly the sites its flax counterpart populates under
 ``ESTIMATE``, named alike, so ``models.bridge`` maps the JAX variables onto
@@ -90,18 +95,15 @@ def default_fp_bias(approx: ApproxConfig, device=None):
     return torch.tensor([float(2 ** (approx.expo_width - 1))], device=device)
 
 
-def _refuse_unported(approx: ApproxConfig):
-    if approx.sim_hw_add_ofuf or approx.debug_mode or approx.self_check_mode:
-        raise NotImplementedError(
-            f"sim_hw_add_ofuf / debug_mode / self_check_mode {_LATER}")
-
-
 def approx_matmul_2d(x2d, w2d, bias_a, bias_b, bias_r, approx: ApproxConfig):
     """(M, K) @ (K, N) through the approximate-multiplier simulation.
     ``bias_b`` is the per-output-channel weight bias vector. Runs the K3
-    wrapper on every device: its plain version on the CPU, the kernel on a
-    GPU."""
-    _refuse_unported(approx)
+    wrapper on every device (its plain version on the CPU, the kernel on a
+    GPU), or :func:`approx_matmul_oracle` where the flags ask for what only
+    the oracle simulates: the integer-domain OF/UF adder, the debug and the
+    self-check modes (as the JAX package dispatches)."""
+    if approx.sim_hw_add_ofuf or approx.debug_mode or approx.self_check_mode:
+        return approx_matmul_oracle(x2d, w2d, bias_a, bias_b, bias_r, approx)
     return k3.approx_matmul(
         x2d.to(torch.float32),
         w2d.to(torch.float32),
@@ -119,35 +121,66 @@ def approx_matmul_2d(x2d, w2d, bias_a, bias_b, bias_r, approx: ApproxConfig):
 
 # products of the (G, rows, K, N) tensor per call of the oracle's golden
 ORACLE_CHUNK_ELEMENTS = 1 << 26
+# the deepest sum XLA's CPU reduction takes in ascending order
+ASCENDING_SUM_MAX_K = 32
+
+
+def _row_chunks(m: int, per_row: int):
+    """Row slices of at most ``ORACLE_CHUNK_ELEMENTS // per_row`` rows."""
+    rows = max(1, ORACLE_CHUNK_ELEMENTS // max(1, per_row))
+    return [slice(r, r + rows) for r in range(0, m, rows)]
 
 
 def approx_matmul_oracle(x, w, bias_a, bias_b, bias_r, approx: ApproxConfig):
-    """The JAX package's jnp oracle on any device, batched over a leading
-    group axis: x (G, M, K), w (G, K, N), bias_b (G, N) (or (N,) / scalar
-    without the group axis); returns (G, M, N). Its s2nn2s zero mask is the
-    raw product's (``zero_mask="raw"``), and it sums over k in ascending
-    order, as XLA's CPU reduction does up to K = 32 (every depthwise conv's
-    K is 9). Rows go in chunks of at most ``ORACLE_CHUNK_ELEMENTS`` products
+    """The JAX package's jnp oracle on any device, optionally batched over a
+    leading group axis: x ([G,] M, K), w ([G,] K, N), bias_b ([G,] N) or
+    scalar; returns ([G,] M, N). Its s2nn2s zero mask is the raw product's
+    (``zero_mask="raw"``), and it sums over k in ascending order up to
+    ``ASCENDING_SUM_MAX_K`` (every depthwise conv's K is 9), as XLA's CPU
+    reduction does, and in PyTorch's order beyond. It simulates every flag,
+    the OF/UF adder (``sim_hw_add_ofuf``, ``with_of_opt``, ``with_uf_opt``)
+    too. Rows go in chunks of at most ``ORACLE_CHUNK_ELEMENTS`` products
     (each output row depends only on its own row of x)."""
-    _refuse_unported(approx)
     table = get_error_table(approx.expo_width, approx.mant_width, approx.with_comp,
                             approx.dnsmp_factor)
     x = x.to(torch.float32)
     w = w.to(torch.float32)
     m, k, n = x.shape[-2], x.shape[-1], w.shape[-1]
-    rows = max(1, ORACLE_CHUNK_ELEMENTS // max(1, math.prod(x.shape[:-2]) * k * n))
     out = x.new_empty((*x.shape[:-1], n))
-    for r in range(0, m, rows):
+    for rows in _row_chunks(m, math.prod(x.shape[:-2]) * k * n):
         terms = approx_products(
-            x[..., r:r + rows, :], w, approx.expo_width, approx.mant_width, bias_a,
+            x[..., rows, :], w, approx.expo_width, approx.mant_width, bias_a,
             bias_b, bias_r, table, with_approx=approx.with_approx,
             with_s2nn2s_opt=approx.with_s2nn2s_opt, golden_clip_of=approx.golden_clip_of,
-            quant_btw_mult_accu=approx.quant_btw_mult_accu, zero_mask="raw")
+            quant_btw_mult_accu=approx.quant_btw_mult_accu, zero_mask="raw",
+            sim_hw_add_ofuf=approx.sim_hw_add_ofuf, with_of_opt=approx.with_of_opt,
+            with_uf_opt=approx.with_uf_opt)
+        if k > ASCENDING_SUM_MAX_K:
+            out[..., rows, :] = terms.sum(dim=-2)
+            continue
         acc = torch.zeros_like(terms[..., 0, :])
         for kk in range(k):
             acc = acc + terms[..., kk, :]
-        out[..., r:r + rows, :] = acc
+        out[..., rows, :] = acc
     return out
+
+
+def qama_matmul_2d(x2d, w2d, res_quant: Callable):
+    """Quantize-after-mult-and-add: every partial product of ``x2d @ w2d``
+    quantized by ``res_quant`` (the res site's frozen FP grid), summed over
+    K, and the sum quantized again. Rows go in chunks of at most
+    ``ORACLE_CHUNK_ELEMENTS`` products; each row's arithmetic is the
+    unchunked one's."""
+    m, k = x2d.shape
+    n = w2d.shape[-1]
+    out = None
+    for rows in _row_chunks(m, k * n):
+        prod3d = x2d[rows, :, None] * w2d[None, :, :]
+        part = res_quant(prod3d).sum(dim=1)
+        if out is None:
+            out = part.new_empty((m, n))
+        out[rows] = part
+    return res_quant(out)
 
 
 class _QuantOpBase(nn.Module):
@@ -273,10 +306,8 @@ class _QuantOpBase(nn.Module):
         return res
 
     def _special_biases(self, a_bias, w_bias, dev):
-        """The armed special path's (activation, weight, result) biases; a
-        site without an FP bias takes ``default_fp_bias``."""
-        if self.qc.run_method.quantize_after_mult_and_add:
-            raise NotImplementedError(f"quantize_after_mult_and_add {_LATER}")
+        """The approx path's (activation, weight, result) biases; a site
+        without an FP bias takes ``default_fp_bias``."""
         if w_bias is None:
             raise ValueError("approx path requires quantized weights")
         approx = self.qc.approx
@@ -287,9 +318,18 @@ class _QuantOpBase(nn.Module):
         return a_b.reshape(-1)[0], w_bias, r_b.reshape(-1)[0]
 
     def _special_matmul(self, x2d, w2d, a_bias, w_bias):
-        """The armed special path on a 2-D matmul (K3)."""
+        """The armed special path on a 2-D matmul, in f32 (grid values
+        upcast exactly): quantize-after-mult-and-add through the res site's
+        frozen grid, or the approximate multiplier (K3, or the oracle)."""
+        x2d, w2d = x2d.to(torch.float32), w2d.to(torch.float32)
+        if self.qc.run_method.quantize_after_mult_and_add:
+            return qama_matmul_2d(x2d, w2d, self._res_fixed)
         return approx_matmul_2d(x2d, w2d, *self._special_biases(a_bias, w_bias, x2d.device),
                                 self.qc.approx)
+
+    def _res_fixed(self, t):
+        """The res site applied with its frozen state (the qama quantizer)."""
+        return self.res_quantizer(t, FIXED)
 
     def _tail(self, res, qp: QuantPhase):
         if self.activation is not None:
@@ -616,6 +656,9 @@ class QuantConv(_QuantOpBase):
             if g == 1:
                 out_g = self._special_matmul(pg[0], wg[0], a_bias,
                                              None if w_bias is None else w_bias[0])[None]
+            elif self.qc.run_method.quantize_after_mult_and_add:
+                out_g = torch.stack([qama_matmul_2d(pg[i], wg[i], self._res_fixed)
+                                     for i in range(g)])
             else:
                 # the JAX package vmaps its jnp oracle over the groups
                 out_g = approx_matmul_oracle(

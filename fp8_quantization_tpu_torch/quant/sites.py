@@ -4,12 +4,15 @@
 The JAX package keeps a site's state in the flax ``quant`` / ``quant_est``
 collections; here it is the module's buffers, named as the JAX state keys
 (``maxval``, ``mantissa_bits``, ``sign_bits`` for the FP quantizer,
-``delta``, ``zero_float``, ``signed`` for the uniform ones, and ``xmin``,
-``xmax``, ``count``), which ``state_dict`` and ``models.bridge`` address by
-the same path. The call carries a phase:
+``delta``, ``zero_float``, ``signed`` for the uniform ones, and the
+estimator's: ``xmin``, ``xmax``, ``count`` for the min/max estimators,
+``search_grid``, ``mses`` (MSE) or ``losses`` (cross-entropy) and ``count``
+for the searches), which ``state_dict`` and ``models.bridge`` address by the
+same path. The call carries a phase:
 
 * ``ESTIMATE`` folds the batch into the range estimator, sets the quantizer
-  range (updating the buffers in place), then quantizes;
+  range (updating the buffers in place; an MSE estimator also elects the
+  ``mantissa_bits``), then quantizes;
 * ``FIXED`` quantizes with the frozen state; the serving phases ``FAST``,
   ``PACKED`` and ``CHAINED`` do so with the bit-ops quantizer kernel (K1)
   on per-tensor FP sites, emit bfloat16 (exact for every ExMy grid with at
@@ -209,6 +212,22 @@ def codes_eligible(qcfg: QuantizerConfig, qp: QuantPhase) -> bool:
             and expo >= 1 and 1 + expo + mant <= 8)
 
 
+def reset_search_grids(model: nn.Module):
+    """:meth:`QuantSite.reset_search_grid` on every site of ``model``.
+
+    The JAX CLI initializes its variables with an ``ESTIMATE`` forward of a
+    zeros example, and its MSE and cross-entropy estimators adopt their
+    candidate grids from that forward: an input site gets ``linspace(0, 0)``
+    and quantizes every later batch to zero, and every other site searches
+    a blank image's range. The port resets those states after its own init
+    forward (``cli.setup``), so the first calibration batch sets the grid,
+    as the reference's ``FP_MSE_Estimator`` does. Min/max states keep their
+    seeding from that forward, as in the JAX package."""
+    for m in model.modules():
+        if isinstance(m, QuantSite):
+            m.reset_search_grid()
+
+
 def fold_quantize_affine(aff: Affine, s, zp, lo_i, hi_i):
     """The integer grid codes ``x_int`` of a pending :class:`Affine` value
     on a frozen per-tensor uniform grid, with the affine and clamp folded
@@ -239,8 +258,6 @@ class QuantSite(nn.Module):
     flax site took it from its first input.
     """
 
-    _EST_KEYS = ("xmin", "xmax", "count")
-
     def __init__(self, qcfg: QuantizerConfig, ecfg: EstimatorConfig,
                  channel_axis: int = -1, num_channels: int = 1, device=None):
         super().__init__()
@@ -253,11 +270,22 @@ class QuantSite(nn.Module):
         self.q_keys = tuple(q)
         for k, v in q.items():
             self.register_buffer(k, v)
-        for k, v in estimators.init(ecfg, qcfg, c, device).items():
+        est = estimators.init(ecfg, qcfg, c, device, per_channel=qcfg.per_channel)
+        # the estimator's state keys: its method's
+        self.est_keys = tuple(est)
+        for k, v in est.items():
             self.register_buffer(k, v)
         # (state key, derived values) frozen per state: the bias and K1
         # scalars of an FP site, the integer grid of a uniform one
         self._frozen = None
+
+    def reset_search_grid(self):
+        """Return a search-grid estimator (MSE, cross-entropy) to its zero
+        state (``count == 0``), so that its next batch chooses the grid."""
+        if estimators.uses_search_grid(self.ecfg):
+            with torch.no_grad():
+                for k in self.est_keys:
+                    getattr(self, k).zero_()
 
     def _state(self, keys):
         return {k: getattr(self, k) for k in keys}
@@ -335,10 +363,14 @@ class QuantSite(nn.Module):
         per_channel = self.qcfg.per_channel
         q = self.quant_state()
         if qp.estimating:
-            new_est, (x_min, x_max, _) = estimators.update(
-                self.ecfg, self.qcfg, self._state(self._EST_KEYS), x.detach(),
+            new_est, (x_min, x_max, mbits) = estimators.update(
+                self.ecfg, self.qcfg, self._state(self.est_keys), x.detach(),
                 per_channel, self.channel_axis)
             q = quantizers.set_quant_range(self.qcfg, q, x_min, x_max)
+            if mbits is not None and not uniform:
+                # the MSE search elects the mantissa width; written in place,
+                # the new state refreezes the derived bias and K1 scalars
+                q = dict(q, mantissa_bits=mbits.to(torch.float32))
             with torch.no_grad():
                 for k, v in {**q, **new_est}.items():
                     getattr(self, k).copy_(v)

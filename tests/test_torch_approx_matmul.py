@@ -114,13 +114,146 @@ def test_cpu_tensor_takes_plain_version(rng):
 
 
 def test_unported_modes_raise():
-    z = torch.zeros(2, 2)
-    with pytest.raises(NotImplementedError):
-        approx_matmul_golden(z, z, 3, 4, 5, 5, 4, get_error_table(3, 4, True, 3),
-                             sim_hw_add_ofuf=True)
-    with pytest.raises(NotImplementedError):
-        approx_matmul_golden(z, z, 3, 4, 5, 5, 4, get_error_table(3, 4, True, 3),
-                             self_check=True)
+    """What stays unported around the approximate path: the mesh flags,
+    ring-attention prefill and LSQ gradient scaling (the oracle-only modes
+    run: the cases below)."""
+    from fp8_quantization_tpu_torch import cli as tcli
+    from fp8_quantization_tpu_torch import config as tc
+    from fp8_quantization_tpu_torch.models.llama import LLAMA3_8B, QuantLlamaBlock
+    from fp8_quantization_tpu_torch.quant.sites import QuantPhase
+
+    args = tcli.build_parser().parse_args(
+        ["validate-quantized", "--architecture", "vit_quantized", "--mesh-data", "2"])
+    with pytest.raises(NotImplementedError, match="later slice"):
+        tcli.setup(args)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        QuantLlamaBlock(tc.QuantConfig(), LLAMA3_8B, ring_spec=("mesh", "seq"))
+    with pytest.raises(NotImplementedError, match="later slice"):
+        QuantPhase(grad_scaling=True)
+
+
+_j_golden_full = jax.jit(j_golden, static_argnums=(2, 3), static_argnames=(
+    "with_approx", "with_s2nn2s_opt", "sim_hw_add_ofuf", "with_of_opt", "with_uf_opt",
+    "quant_btw_mult_accu", "golden_clip_of", "self_check"))
+OFUF = [(False, False), (True, False), (False, True), (True, True)]
+
+
+def _wide_operands(rng, m, k, n, ba, bias_b):
+    """Grid operands over many binades, so the adder overflows and
+    underflows: E3M4 values of magnitude 2^-5 .. 2^4."""
+    scale_a = np.exp2(rng.integers(-5, 5, size=(m, k)))
+    scale_b = np.exp2(rng.integers(-5, 5, size=(k, n)))
+    a, b = grid_operands(rng, m, k, n, 3, 4, ba, bias_b)
+    a = codec.quantize_exmy(torch.from_numpy((a * scale_a).astype(np.float32)), 3, 4, ba)
+    b = codec.quantize_exmy(torch.from_numpy((b * scale_b).astype(np.float32)), 3, 4,
+                            torch.as_tensor(np.asarray(bias_b)).reshape(1, -1))
+    return a.numpy(), b.numpy()
+
+
+@pytest.mark.parametrize("of,uf", OFUF, ids=["plain", "of", "uf", "of_uf"])
+def test_sim_hw_add_ofuf_matches_jax(rng, of, uf):
+    """The integer-domain OF/UF adder against the JAX oracle, with the
+    golden fallback and under s2nn2s (the oracle's raw zero mask): each
+    product bit for bit (K = 1, where the sum is the product), the sums
+    within the Pallas tests' tolerance; the fix-ups change the result (the
+    underflow one only under s2nn2s: elsewhere an underflowing product is
+    subnormal and takes the golden value)."""
+    ba, br = 5, 4
+    bias_b = np.array([3, 4, 5, 6, 7, 8], dtype=np.int32)
+    a, b = _wide_operands(rng, 12, 16, 6, ba, bias_b)
+    table = get_error_table(3, 4, True, 3)
+    ta, tb, tbb = torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(bias_b)
+    for s2 in (False, True):
+        kw = dict(sim_hw_add_ofuf=True, with_of_opt=of, with_uf_opt=uf, with_s2nn2s_opt=s2)
+        for k in (1, 16):
+            want = np.asarray(_j_golden_full(a[:, :k], b[:k], 3, 4, ba, bias_b, br,
+                                             j_table(3, 4, True, 3), **kw))
+            ours = approx_matmul_golden(ta[:, :k], tb[:k], 3, 4, ba, tbb, br, table,
+                                        zero_mask="raw", **kw).numpy()
+            if k == 1:
+                np.testing.assert_array_equal(ours, want)
+            else:
+                np.testing.assert_allclose(ours, want, **TOL)
+        plain = approx_matmul_golden(ta, tb, 3, 4, ba, tbb, br, table, zero_mask="raw",
+                                     sim_hw_add_ofuf=True, with_s2nn2s_opt=s2)
+        if of or (uf and s2):
+            assert not np.array_equal(ours, plain.numpy())
+    float_domain = approx_matmul_golden(ta, tb, 3, 4, ba, tbb, br, table)
+    assert not torch.equal(approx_matmul_golden(ta, tb, 3, 4, ba, tbb, br, table,
+                                                sim_hw_add_ofuf=True), float_domain)
+
+
+@pytest.mark.parametrize("s2", [False, True], ids=["golden_fallback", "s2nn2s"])
+def test_self_check_stats_match_jax(rng, s2):
+    """``self_check``'s ApproxStats: the operands' and products' normal
+    shares and the error against the golden sum."""
+    ba, bb, br = 5, 6, 4
+    a, b = _wide_operands(rng, 10, 12, 7, ba, bb)
+    want, jstats = _j_golden_full(a, b, 3, 4, ba, bb, br, j_table(3, 4, True, 3),
+                                  with_s2nn2s_opt=s2, self_check=True)
+    ours, stats = approx_matmul_golden(torch.from_numpy(a), torch.from_numpy(b), 3, 4, ba,
+                                       bb, br, get_error_table(3, 4, True, 3),
+                                       with_s2nn2s_opt=s2, self_check=True, zero_mask="raw")
+    np.testing.assert_allclose(ours.numpy(), np.asarray(want), **TOL)
+    assert stats._fields == jstats._fields
+    for name, t, j in zip(stats._fields, stats, jstats):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), err_msg=name, **TOL)
+    assert 0 < float(stats.norm_frac_a) < 1 and (float(stats.norm_frac_r) == 1.0) == s2
+
+
+@pytest.mark.parametrize("per_column", [False, True], ids=["scalar_bias", "per_column_bias"])
+def test_golden_v6_matches_jax(rng, per_column):
+    """The v6 integer-domain oracle (all-normal codec, flat-code adder,
+    final requant) at the JAX package's own tolerance against the
+    reference, with its self-check statistics."""
+    from fp8_quantization_tpu.numerics import approx_matmul_golden_v6 as j_v6
+    from fp8_quantization_tpu.numerics import quantize_exmy_allnorm as j_allnorm
+    from fp8_quantization_tpu_torch.numerics import approx_matmul_golden_v6
+
+    ba = 5
+    bias_b = np.array([3, 4, 5, 6, 7], dtype=np.int32) if per_column else np.int32(6)
+    bias_r = np.array([4, 5, 3, 6, 4], dtype=np.int32) if per_column else np.int32(4)
+    a = np.array(j_allnorm((rng.normal(size=(12, 8)) * 2).astype(np.float32), 3, 4, ba))
+    b = np.array(j_allnorm((rng.normal(size=(8, 5)) * 2).astype(np.float32), 3, 4,
+                             np.asarray(bias_b).reshape(1, -1) if per_column else bias_b))
+    want, jstats = jax.jit(j_v6, static_argnums=(2, 3), static_argnames=("self_check",))(
+        a, b, 3, 4, ba, bias_b, bias_r, j_table(3, 4, True, 3), self_check=True)
+    ours, stats = approx_matmul_golden_v6(torch.from_numpy(a), torch.from_numpy(b), 3, 4, ba,
+                                          torch.as_tensor(bias_b), torch.as_tensor(bias_r),
+                                          get_error_table(3, 4, True, 3), self_check=True)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(want), **TOL)
+    for name, t, j in zip(stats._fields, stats, jstats):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), err_msg=name, **TOL)
+    plain = approx_matmul_golden_v6(torch.from_numpy(a), torch.from_numpy(b), 3, 4, ba,
+                                    torch.as_tensor(bias_b), torch.as_tensor(bias_r),
+                                    get_error_table(3, 4, True, 3))
+    np.testing.assert_array_equal(plain.numpy(), ours.numpy())
+
+
+@pytest.mark.parametrize("mode", ["sim_hw_add_ofuf", "debug_mode", "self_check_mode"])
+def test_oracle_only_modes_take_the_oracle(rng, mode, monkeypatch):
+    """A layer's approximate product under a mode only the oracle simulates
+    goes to ``approx_matmul_oracle`` (the JAX package's jnp oracle, as its
+    dispatch does), never to K3, and equals the oracle run by hand."""
+    from fp8_quantization_tpu_torch import config as tc
+    from fp8_quantization_tpu_torch.ops import layers as tlayers
+
+    approx = tc.ApproxConfig(with_comp=True, with_approx=True, with_of_opt=True,
+                             **{mode: True})
+    a, b = grid_operands(rng, 6, 16, 5, 3, 4, 5, 6)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    calls = []
+    real = tlayers.approx_matmul_oracle
+    monkeypatch.setattr(tlayers, "approx_matmul_oracle",
+                        lambda *args: calls.append(1) or real(*args))
+    before = k3.approx_matmul.launches
+    bias_b = torch.full((5,), 6, dtype=torch.int32)
+    got = tlayers.approx_matmul_2d(ta, tb, torch.tensor(5), bias_b, torch.tensor(4), approx)
+    assert calls == [1] and k3.approx_matmul.launches == before
+    want = approx_matmul_golden(ta, tb, 3, 4, 5, bias_b, 4, get_error_table(3, 4, True, 3),
+                                sim_hw_add_ofuf=approx.sim_hw_add_ofuf, with_of_opt=True,
+                                zero_mask="raw")
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
 
 
 def test_library_name_tracks_source_and_flags(monkeypatch, tmp_path):

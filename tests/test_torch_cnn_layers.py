@@ -50,9 +50,9 @@ torch.set_num_threads(1)  # the suite's test workers share the machine's cores
 C_IN, C_OUT = 4, 8
 
 
-def _qc(mod, approx=False, expo=3, mant=4, s2nn2s=False):
+def _qc(mod, approx=False, expo=3, mant=4, s2nn2s=False, qama=False):
     """``scripts/image_net.sh``'s configuration at E{expo}M{mant}, plus the
-    approx run method."""
+    approx or the quantize-after-mult-and-add run method."""
     return mod.QuantConfig(
         method=mod.QMethod.fp_quantizer, per_channel_weights=True, quantize_input=True,
         weight_range=mod.EstimatorConfig(mod.RangeMethod.current_minmax),
@@ -60,7 +60,7 @@ def _qc(mod, approx=False, expo=3, mant=4, s2nn2s=False):
         fp8=mod.FP8Config(set_maxval=True, mse_include_mantissa_bits=False,
                           mantissa_bits=mant),
         run_method=mod.RunMethodConfig(res_quantizer_flag=True, original_quantize_res=True,
-                                       approx_flag=approx),
+                                       approx_flag=approx, quantize_after_mult_and_add=qama),
         approx=mod.ApproxConfig(expo_width=expo, mant_width=mant, with_comp=approx,
                                 with_approx=approx, with_s2nn2s_opt=s2nn2s))
 
@@ -77,11 +77,12 @@ CONV_STEM = dict(kernel_size=(7, 7), strides=(2, 2), padding=[(3, 3), (3, 3)])
 CONV_DOWNSAMPLE = dict(kernel_size=(1, 1), strides=(2, 2), padding=[(0, 0), (0, 0)])
 
 
-def _conv_pair(qc_args, groups, *, bn=False, rng, values="int", conv=CONV_3X3, c_in=C_IN):
-    """A JAX conv and the port's counterpart carrying its init, both at
-    ``conv``'s kernel, strides and padding; the kernel and (for the plain
-    conv) bias replaced by small integers. Returns (jax module, variables,
-    port module, x)."""
+def _conv_pair(qc_args, groups, *, bn=False, rng, values="int", conv=CONV_3X3, c_in=C_IN,
+               jit_init=False):
+    """A JAX conv and the port's counterpart carrying its init (jitted with
+    ``jit_init``), both at ``conv``'s kernel, strides and padding; the kernel
+    and (for the plain conv) bias replaced by small integers. Returns (jax
+    module, variables, port module, x)."""
     jcls = jlayers.BNQuantConv if bn else jlayers.QuantConv
     tcls = tlayers.BNQuantConv if bn else tlayers.QuantConv
     kw = dict(conv, feature_group_count=groups, use_bias=not bn)
@@ -93,7 +94,8 @@ def _conv_pair(qc_args, groups, *, bn=False, rng, values="int", conv=CONV_3X3, c
         # the result grid
         x = (rng.normal(size=size) * np.exp2(rng.integers(-9, 3, size=size))).astype(np.float32)
     jm = jcls(qc=_qc(jc, **qc_args), features=C_OUT, **kw)
-    variables = jm.init(jax.random.key(1), jnp.asarray(x), jsites.ESTIMATE)
+    init = jax.jit(jm.init, static_argnums=2) if jit_init else jm.init
+    variables = init(jax.random.key(1), jnp.asarray(x), jsites.ESTIMATE)
     params = dict(variables["params"])
     shape = (*conv["kernel_size"], c_in // groups, C_OUT)
     params["kernel"] = jnp.asarray(rng.integers(-2, 3, size=shape).astype(np.float32)
@@ -200,6 +202,21 @@ def test_approx_quant_conv_matches_jax(case, rng, monkeypatch):
     np.testing.assert_array_equal(got, want)
     # the grouped convs went through the oracle, all groups in one call
     assert [s[0] for s in oracle_calls] == ([] if groups == 1 else [groups, groups])
+
+
+def test_qama_grouped_quant_conv_matches_jax(rng):
+    """Quantize-after-mult-and-add on a grouped conv through ESTIMATE then
+    FIXED: every product on the res site's grid, summed, and the sum
+    requantized, a group at a time. Integer operands keep every sum exact,
+    so the outputs agree bit for bit; no kernel launches."""
+    jm, variables, tm, x = _conv_pair(dict(qama=True), 2, rng=rng, jit_init=True)
+    before = _launches()
+    variables = _estimate(jm, variables, tm, x, jit=True)
+    want = np.asarray(_apply(jm, variables, x, jsites.FIXED, jit=True))
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x), tsites.FIXED).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert _launches() == before
 
 
 def test_grouped_oracle_matches_jax_oracle():

@@ -1,7 +1,9 @@
 """The port's numerics against the JAX package's, on the same numpy inputs.
 
 Everything here is bit-exact (``assert_array_equal``): the FP8 STE quantizer,
-the ExMy codec, the compensation LUTs and the exact powers of two.
+the ExMy codec, the compensation LUTs, the exact powers of two and the
+host-side grid helpers; and the native C++ codec against the port's codec
+(skipped only where no ``g++`` builds it).
 """
 
 import itertools
@@ -21,6 +23,7 @@ from fp8_quantization_tpu_torch.numerics import fp8_ste as tste
 from fp8_quantization_tpu_torch.numerics import formats as tformats
 from fp8_quantization_tpu_torch.numerics import luts as tluts
 from fp8_quantization_tpu_torch.numerics import rounding as tround
+from fp8_quantization_tpu_torch.utils import native
 
 torch.set_num_threads(1)  # the suite's test workers share the machine's cores
 
@@ -178,3 +181,42 @@ def test_error_tables_every_selection(ew, mw):
         else:
             assert t.dtype == np.int32
             np.testing.assert_array_equal(t, j)
+
+
+@pytest.mark.parametrize("expo,bias", [(4, 8), (3, 4), (5, 16)], ids=["E4M3b8", "E3M4b4",
+                                                                    "E5M2b16"])
+def test_fp8_grid_helpers_match_jax(expo, bias):
+    from fp8_quantization_tpu_torch import numerics as tnum
+
+    grid = tnum.fp8_grid(8, expo, bias)
+    np.testing.assert_array_equal(grid, jste.fp8_grid(8, expo, bias))
+    assert grid.size == 2 ** 8 and np.all(np.diff(grid) >= 0)
+    np.testing.assert_array_equal(tnum.fp8_grid_scaled(8, expo, bias, 4.0),
+                                  jste.fp8_grid_scaled(8, expo, bias, 4.0))
+    assert tnum.fp8_max_value(expo, bias) == jste.fp8_max_value(expo, bias) == grid.max()
+
+
+@pytest.mark.skipif(not native.available(), reason="no g++ to build runtime/exmy_codec.cc")
+@pytest.mark.parametrize("ew,mw,bias", [(4, 3, 7), (3, 4, 3), (2, 5, 1), (3, 4, 8)])
+def test_native_codec_matches_port(rng, ew, mw, bias):
+    """The C++ codec and the port's: quantize (both overflow modes),
+    decompose, compose and the FP8 STE quantizer with its bias, bit for bit."""
+    x = _edge_values(rng)
+    for clip in (True, False):
+        want = tcodec.quantize_exmy(torch.from_numpy(x), ew, mw, bias, clip_of=clip).numpy()
+        np.testing.assert_array_equal(native.exmy_quantize(x, ew, mw, bias, clip_of=clip), want)
+    e, m = tcodec.decompose(torch.from_numpy(x), mw, bias)
+    ne, nm = native.exmy_decompose(x, ew, mw, bias)
+    np.testing.assert_array_equal(ne, e.numpy())
+    np.testing.assert_array_equal(nm, m.numpy())
+    sign = np.where(x < 0, -1.0, 1.0).astype(np.float32)
+    np.testing.assert_array_equal(
+        native.exmy_compose(ne, nm, sign, mw, bias),
+        tcodec.compose(e, m, mw, bias, sign=torch.from_numpy(sign)).numpy())
+    y = (rng.normal(size=4096) * 3).astype(np.float32)
+    for sign_bits in (1, 0):
+        ours, b = tste.quantize_to_fp8_ste(torch.from_numpy(y), 8, torch.tensor([2.37]),
+                                           float(mw), sign_bits)
+        nat, nat_bias = native.fp8_ste_quantize(y, 8, 2.37, mw, sign_bits)
+        assert nat_bias == int(b[0])
+        np.testing.assert_array_equal(nat, ours.numpy())

@@ -141,7 +141,8 @@ def test_quant_site_estimate_then_fixed(rng, per_channel):
 
 
 def test_unported_pieces_raise():
-    # the serving phases (fast, packed, chained) are ported; these are not
+    # the serving phases (fast, packed, chained) and every range estimator
+    # are ported (tests/test_torch_estimators.py); these are not
     with pytest.raises(NotImplementedError):
         tsites.QuantPhase(phase="fixed", grad_scaling=True)
     # BN re-estimation is ported (the CNN slice); LSQ gradient scaling is not
@@ -149,8 +150,6 @@ def test_unported_pieces_raise():
     uniform = tc.QuantizerConfig(method=tc.QMethod.symmetric_uniform)
     with pytest.raises(NotImplementedError):
         tq.apply(uniform, tq.init(uniform), torch.ones(3), grad_scaling=True)
-    with pytest.raises(NotImplementedError):
-        tsites.QuantSite(_qcfg(tc, False), tc.EstimatorConfig(tc.RangeMethod.MSE))
     with pytest.raises(NotImplementedError):
         tlayers.QuantConv(tc.QuantConfig(), 4, 4, kernel_size=(3,))
 
@@ -202,3 +201,59 @@ def test_quant_conv_plain_path_matches_jax(rng):
     for k, v in tconv.state_dict().items():
         np.testing.assert_array_equal(v.numpy(), expect[k].numpy(), err_msg=k)
     np.testing.assert_array_equal(ty, np.asarray(jconv.apply(variables, jnp.asarray(x))))
+
+
+def test_qama_matmul_2d_matches_jax(rng):
+    """``qama_matmul_2d`` on random operands with an FP8 res quantizer: the
+    same result up to the order of the K-sum before its requant (one grid
+    step where a sum lies at a rounding midpoint), and the same with rows in
+    chunks of one."""
+    from fp8_quantization_tpu.numerics.fp8_ste import quantize_to_fp8_ste as j_ste
+    from fp8_quantization_tpu_torch.numerics.fp8_ste import quantize_to_fp8_ste as t_ste
+
+    x = (rng.normal(size=(9, 24)) * 2).astype(np.float32)
+    w = rng.normal(size=(24, 7)).astype(np.float32)
+    want = np.asarray(jax.jit(lambda x, w: jlayers.qama_matmul_2d(
+        x, w, lambda t: j_ste(t, 8, jnp.asarray([6.0]), 4.0, 1)[0]))(x, w))
+    res_q = lambda t: t_ste(t, 8, torch.tensor([6.0]), 4.0, 1)[0]  # noqa: E731
+    got = tlayers.qama_matmul_2d(torch.from_numpy(x), torch.from_numpy(w), res_q)
+    step = t_ste(torch.from_numpy(want.copy()), 8, torch.tensor([6.0]), 4.0, 1)[0]
+    assert np.abs(got.numpy() - want).max() <= 2.0 ** -3
+    assert (got.numpy() == want).mean() >= 0.95 and np.array_equal(step.numpy(), want)
+    old = tlayers.ORACLE_CHUNK_ELEMENTS
+    try:
+        tlayers.ORACLE_CHUNK_ELEMENTS = 1
+        assert torch.equal(tlayers.qama_matmul_2d(torch.from_numpy(x), torch.from_numpy(w),
+                                                  res_q), got)
+    finally:
+        tlayers.ORACLE_CHUNK_ELEMENTS = old
+
+
+def test_qama_quant_dense_matches_jax(rng):
+    """A ``QuantDense`` under quantize-after-mult-and-add through ESTIMATE
+    then FIXED: the same site state and, with integer operands (every sum
+    exact), the same output bit for bit."""
+    qc = lambda mod: dataclasses.replace(  # noqa: E731
+        _layer_qc(mod), run_method=mod.RunMethodConfig(
+            res_quantizer_flag=True, original_quantize_res=True,
+            quantize_after_mult_and_add=True))
+    x = rng.integers(-3, 4, size=(2, 5, 12)).astype(np.float32)
+    jd = jlayers.QuantDense(qc=qc(jc), features=6)
+    variables = jax.jit(jd.init, static_argnums=2)(jax.random.key(1), jnp.asarray(x),
+                                                   jsites.ESTIMATE)
+    params = {"kernel": jnp.asarray(rng.integers(-2, 3, size=(12, 6)).astype(np.float32)),
+              "bias": jnp.asarray(rng.integers(-2, 3, size=6).astype(np.float32))}
+    variables = {**variables, "params": params}
+    td = tlayers.QuantDense(qc(tc), 12, 6)
+    td.load_state_dict(from_jax_variables(jax.tree.map(np.asarray, dict(variables))))
+    _, ups = jax.jit(lambda v, x: jd.apply(v, x, jsites.ESTIMATE,
+                                           mutable=["quant", "quant_est"]))(variables, x)
+    variables = {**variables, **ups}
+    with torch.no_grad():
+        td(torch.from_numpy(x), tsites.ESTIMATE)
+        ty = td(torch.from_numpy(x), tsites.FIXED).numpy()
+    expect = from_jax_variables(jax.tree.map(np.asarray, dict(variables)))
+    for k, v in td.state_dict().items():
+        np.testing.assert_array_equal(v.numpy(), expect[k].numpy(), err_msg=k)
+    want = np.asarray(jax.jit(lambda v, x: jd.apply(v, x, jsites.FIXED))(variables, x))
+    np.testing.assert_array_equal(ty, want)

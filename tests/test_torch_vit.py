@@ -45,6 +45,7 @@ from fp8_quantization_tpu_torch.models.vit import QuantizedViT as TViT
 from fp8_quantization_tpu_torch.models.vit import ViTSpec as TSpec
 from fp8_quantization_tpu_torch.ops.cuda import approx_matmul as k3
 from fp8_quantization_tpu_torch.quant.sites import FIXED
+from test_torch_estimators import hold_election
 
 torch.set_num_threads(1)  # the suite's test workers share the machine's cores
 
@@ -189,3 +190,81 @@ def test_tiny_vit_fast_fused_sdpa_matches_jax():
     rel = np.sqrt(((t_logits - j_logits) ** 2).mean()) / j_logits.std()
     assert rel < 1e-2, rel
     np.testing.assert_array_equal(t_logits.argmax(-1), j_logits.argmax(-1))
+
+
+def _mse_qc(mod):
+    """The published flags with the FP8 paper's MSE range setting on weights
+    and activations and the mantissa-width election (the JAX CLI's default
+    ``--fp8-mse-include-mantissa-bits``)."""
+    return dataclasses.replace(
+        _qc(mod, False), weight_range=mod.EstimatorConfig(mod.RangeMethod.MSE),
+        act_range=mod.EstimatorConfig(mod.RangeMethod.MSE),
+        fp8=mod.FP8Config(set_maxval=True, mse_include_mantissa_bits=True, mantissa_bits=4))
+
+
+def _fresh_mse_states(tree, ecfg, qcfg):
+    """``tree`` (a ``quant_est`` collection) with every site's estimator
+    state replaced by a fresh MSE state of its channel count."""
+    from fp8_quantization_tpu.quant import estimators as je
+
+    if "est" in tree:
+        c = tree["est"]["xmin"].shape[0]
+        return {"est": je.init(ecfg, qcfg, (c,), True, 0)}
+    return {k: _fresh_mse_states(v, ecfg, qcfg) for k, v in tree.items()}
+
+
+def test_tiny_vit_mse_calibration_matches_jax():
+    """The slice as a whole: the tiny ViT, cut to its first block, calibrated
+    with MSE weights and activations on two batches, then FIXED and FAST.
+    (Tracing and compiling JAX's MSE calibration takes ~18 s a block on the
+    CPU; the blocks are alike.) Both start from the JAX init's parameters
+    with fresh MSE states (the port's CLI resets its searches after the init
+    forward; nothing in the JAX package changes for that): every site elects
+    the same mantissa width by the election rule of
+    ``tests/test_torch_estimators.py``, and the calibrated state and the
+    logits agree within this file's tolerances."""
+    from fp8_quantization_tpu_torch.quant.sites import FAST
+
+    rng = np.random.default_rng(SEED)
+    calib = [rng.normal(size=(2, 32, 32, 3)).astype(np.float32) for _ in range(2)]
+    x = rng.normal(size=(2, 32, 32, 3)).astype(np.float32)
+    spec = dict(TINY, num_layers=1)
+    init = {c: {k: v for k, v in tree.items() if k != "layer_1"}
+            for c, tree in _numpy_tree(_jax_init()).items()}
+    jqc = _mse_qc(jc)
+    jm = JViT(qc=jqc, spec=JSpec(**spec))
+    variables = {**init, "quant_est": _fresh_mse_states(
+        init["quant_est"], jqc.act_range, jqc.act_quantizer())}
+    calibrated = j_calibrate(jm, variables, calib, num_est_batches=2)
+    j_fixed, j_fast = (np.asarray(jax.jit(lambda v, x, qp=qp: jm.apply(v, x, qp))(
+        calibrated, jnp.asarray(x))).astype(np.float32)
+        for qp in (JPhase(), JPhase(phase="fixed", fast=True)))
+
+    tm = TViT(qc=_mse_qc(tc), spec=TSpec(**spec))
+    tm.load_state_dict(from_jax_variables(_numpy_tree(variables)), strict=True)
+    t_calibrate(tm, calib, num_est_batches=2)
+    with torch.no_grad():
+        t_fixed = tm(torch.from_numpy(x), FIXED).numpy()
+        t_fast = tm(torch.from_numpy(x), FAST).float().numpy()
+
+    expect = from_jax_variables(_numpy_tree({k: calibrated[k]
+                                             for k in ("quant", "quant_est")}))
+    got = tm.state_dict()
+    sites = [k[:-len("mses")] for k in expect if k.endswith(".mses")]
+    assert len(sites) > 10
+    assert len({float(expect[p + "mantissa_bits"][0]) for p in sites}) > 1
+    for p in sites:
+        # tests/test_torch_estimators.py's election rule, at this file's
+        # state tolerance: the site inputs differ by LayerNorm/GELU ulps
+        state = lambda d: {"search_grid": d[p + "search_grid"], "mses": d[p + "mses"]}  # noqa
+        ranges = lambda d: (None, d[p + "maxval"], d[p + "mantissa_bits"])  # noqa: E731
+        hold_election(state(expect), ranges(expect), state(got), ranges(got),
+                      grid_tol=STATE_TOL, **STATE_TOL)
+    searched = ("search_grid", "mses", "maxval")
+    for key, value in expect.items():
+        if not key.endswith(searched):
+            np.testing.assert_allclose(got[key].numpy(), value.numpy(), err_msg=key,
+                                       **STATE_TOL)
+    for t, j in ((t_fixed, j_fixed), (t_fast, j_fast)):
+        assert np.isfinite(t).all() and t.shape == (2, 10)
+        np.testing.assert_allclose(t, j, **LOGIT_TOL)
