@@ -19,7 +19,7 @@ Phases, one line each (any failure exits non-zero; no phase is skipped):
    sweep of result biases (bit for bit); the bit-ops
    quantizer (K1) on random, zero, subnormal, +-maxval and clip-edge inputs,
    also at every mantissa width the MSE search elects (E6M1 ... E1M6, sign 1
-   and 0), with K2's two routes at each of those widths;
+   and 0), with the two routes of K2 and K4 at each of those widths;
    the fused quant GEMM (K2) and the packed-FP8 dequant GEMM (K4) in every
    switch combination at the four dense shapes on a 64-row slice, unaligned
    ones, Llama-3-8B's decode shapes (k/v and down at 1, 2, 4, 16 rows,
@@ -57,16 +57,18 @@ Phases, one line each (any failure exits non-zero; no phase is skipped):
    Then the FP8 paper's MSE range setting on the same flags (MSE weights and
    acts, the mantissa-width election, two calibration batches): published,
    ``--fast-mode`` (K1, K2 at the elected widths) and ``--fast-mode
-   --packed-weights`` (K4 on the layers whose elected weight width packs,
-   K2 on the rest), and without the election under ``--fast-mode
-   --packed-weights`` (every dense layer on K4): each with its calibration
+   --packed-weights --fp8-mantissa-bits 6`` (K4 at E1M6, the width every
+   dense weight elects, on every dense layer), and without the election
+   under ``--fast-mode --packed-weights`` (every dense layer on K4 at
+   E3M4): each with its calibration
    seconds, ms/img, the elected-width histograms, the packed layers, every
    site's maxval finite and > 0, and the launches the sites' formats imply;
    then quantize-after-mult-and-add and the approximate multiplier with the
    OF/UF adder (plain PyTorch: ``qama_matmul_2d`` and the oracle on every
    product, no kernel), one eval batch of ``ORACLE_BATCH`` images each (the
-   oracle takes ~9.5 s an image), the oracle's top-1 agreement with the K3
-   run on the same images printed.
+   oracle takes ~9.5 s an image), the oracle's top-1 agreement printed
+   against a K3 run of the same flags and batch size (the same calibration
+   and eval images).
    Then ``validate-quantized`` on the CNNs at full width, batch 16:
    ``mobilenet_v2_quantized`` published, approx (K3 on the ungrouped convs
    and the classifier, the oracle on the depthwise ones), ``--fast-mode``
@@ -511,21 +513,22 @@ def check_k1(fm, dev):
 # the mantissa widths the MSE search elects among on a signed 8-bit grid
 # (E6M1 ... E1M6), each with its own bias and subnormal edge
 ELECTED_WIDTHS = tuple(range(1, 7))
-# K2 at every width: route A (decode-sized M) and route B
+# K2 and K4 at every width: route A (decode-sized M) and route B
 WIDTH_GEMM_ROWS = (16, SLICE_ROWS)
 
 
-def check_widths(fm, dev):
-    """K1 and both routes of K2 at every width the MSE search can elect,
-    against their plain versions: K1 equal on the edge inputs of
-    :func:`k1_inputs`, sign 1 and 0; K2 (f32 x quantized on the load and
-    bf16 x, with and without the requant, at 768 x 768) route A equal and
-    route B within ``within_requant_step``, its act and res scalars and its
-    weights on the same width. Returns the worst |d| of each."""
+def check_widths(fm, dm, dev):
+    """K1 and both routes of K2 and K4 at every width the MSE search can
+    elect, against their plain versions: K1 equal on the edge inputs of
+    :func:`k1_inputs`, sign 1 and 0; K2 and K4 (f32 x quantized on the load
+    and bf16 x, with and without the requant, at 768 x 768; K4's weights
+    packed as E(7-M)M codes) route A equal and route B within
+    ``within_requant_step``, the act and res scalars and the weights on the
+    same width. Returns the worst |d| of each."""
     from fp8_quantization_tpu_torch.numerics.fp8_ste import quantize_to_fp8_ste
 
     rng = np.random.default_rng(13)
-    worst = {"K1": 0.0, "K2": 0.0}
+    worst = {"K1": 0.0, "K2": 0.0, "K4": 0.0}
 
     def bias_of(maxval, mant, sign):
         return int(quantize_to_fp8_ste(torch.zeros(1), 8, torch.tensor([maxval]), float(mant),
@@ -543,30 +546,47 @@ def check_widths(fm, dev):
         act = device_qscalars(dev, 4.0, bias_of(4.0, mant, 1), mant, 1)
         res = device_qscalars(dev, 8.0, bias_of(8.0, mant, 1), mant, 1)
         fractions, routes = [], []
+
+        def hold(name, run, plain_sum, x_eff, w_eff, what):
+            for requant in (False, True):
+                ours = run(requant)
+                plain_q = fm.quantize_block_plain(plain_sum, *res) if requant else plain_sum
+                route, ok, frac = gemm_verdict(fm, ours, plain_sum, x_eff, w_eff,
+                                               res if requant else None, plain_q)
+                worst[name] = max(worst[name], float((ours - plain_q).abs()
+                                                     .nan_to_num(0.0).max()))
+                fractions.append(frac)
+                if not ok:
+                    raise SystemExit(f"{name} route {route} breaks its contract at width {mant} "
+                                     f"({what}, requant={requant})")
+            return route
+
         for m in WIDTH_GEMM_ROWS:
-            x, wq, _ = gemm_operands(m, 768, 768, dev, seed=100 * mant + m, mant=mant)
+            x, wq, w_bias = gemm_operands(m, 768, 768, dev, seed=100 * mant + m, mant=mant)
             w16 = wq.to(torch.bfloat16)
             xq = fm.quantize_block_plain(x, *act)
             for quantize_x in (True, False):
                 xin = x if quantize_x else xq.to(torch.bfloat16)
                 plain_sum = fm.fused_quant_matmul_plain(xin, w16, act, quantize_x=quantize_x)
-                for requant in (False, True):
-                    ours = fm.fused_quant_matmul(xin, w16, act, res, quantize_x=quantize_x,
-                                                 requantize_out=requant)
-                    plain_q = fm.quantize_block_plain(plain_sum, *res) if requant else plain_sum
-                    route, ok, frac = gemm_verdict(fm, ours, plain_sum, xq, wq,
-                                                   res if requant else None, plain_q)
-                    worst["K2"] = max(worst["K2"], float((ours - plain_q).abs()
-                                                         .nan_to_num(0.0).max()))
-                    fractions.append(frac)
-                    if not ok:
-                        raise SystemExit(f"K2 route {route} breaks its contract at width {mant} "
-                                         f"(quantize_x={quantize_x}, requant={requant})")
+                route = hold("K2", lambda rq: fm.fused_quant_matmul(
+                    xin, w16, act, res, quantize_x=quantize_x, requantize_out=rq),
+                    plain_sum, xq, wq, f"quantize_x={quantize_x}")
+            pw = dm.pack_weights(wq, w_bias, 7 - mant, mant)
+            w_eff = dm.unpack_weights(pw)
+            for what, xin, xkw in (("bf16 x", xq.to(torch.bfloat16), {}),
+                                   ("f32 x quantized", x, dict(quantize_x=True,
+                                                               act_params=act))):
+                kw = dict(expo_width=7 - mant, mant_width=mant, **xkw)
+                plain_sum = dm.dequant_matmul_plain(xin, pw.codes, pw.bias, **kw)
+                hold("K4", lambda rq: dm.dequant_matmul(
+                    xin, pw.codes, pw.bias, res_params=res, requantize_out=rq, **kw),
+                    plain_sum, xq, w_eff, what)
             routes.append(route)
-        phase("kernels", f"width E{7 - mant}M{mant}: K1 equal to plain (sign 1 and 0); K2 at "
-                         f"{'/'.join(map(str, WIDTH_GEMM_ROWS))} x 768 x 768 routes {routes} "
-                         f"within contract (min equal fraction {min(fractions):.4f}); worst "
-                         f"|d| K1 {worst['K1']:.3g}, K2 {worst['K2']:.3g}")
+        phase("kernels", f"width E{7 - mant}M{mant}: K1 equal to plain (sign 1 and 0); K2 and "
+                         f"K4 at {'/'.join(map(str, WIDTH_GEMM_ROWS))} x 768 x 768 routes "
+                         f"{routes} within contract (min equal fraction {min(fractions):.4f}); "
+                         f"worst |d| K1 {worst['K1']:.3g}, K2 {worst['K2']:.3g}, "
+                         f"K4 {worst['K4']:.3g}")
     return worst
 
 
@@ -841,8 +861,10 @@ MSE_FLAGS = _flags(PUBLISHED_FLAGS, weight_quant_method="MSE", act_quant_method=
 MSE_RUNS = {
     "mse published": MSE_FLAGS,
     "mse fast": MSE_FLAGS + ["--fast-mode"],
-    "mse packed": MSE_FLAGS + ["--fast-mode", "--packed-weights"],
-    # every dense layer at --fp8-mantissa-bits: all pack
+    # _pack_fp packs a layer whose elected width is --fp8-mantissa-bits:
+    # with random weights every dense weight elects E1M6
+    "mse packed": _flags(MSE_FLAGS, fp8_mantissa_bits=6) + ["--fast-mode", "--packed-weights"],
+    # every dense layer at --fp8-mantissa-bits (E3M4): all pack
     "mse fixed-width packed": _flags(MSE_FLAGS, swap={
         "--fp8-mse-include-mantissa-bits": "--no-fp8-mse-include-mantissa-bits"})
     + ["--fast-mode", "--packed-weights"],
@@ -850,13 +872,14 @@ MSE_RUNS = {
 MSE_EVALS = 2
 # the plain-PyTorch run methods on the published flags (and the approx
 # ones), one eval batch each, of fewer images: the OF/UF oracle takes ~9.5 s
-# an image on the card (PERF.md §6, PR 13); its eval batch is the first
-# ORACLE_BATCH images of the K3 run's first eval batch (one seeded draw)
+# an image on the card (PERF.md §6). The OF/UF run is held against a
+# K3 run of the same flags and batch size: the same calibration and images
 ORACLE_EVALS = 1
 ORACLE_BATCH = 2
+K3_ORACLE_FLAGS = _flags(APPROX_FLAGS, max_eval_batches=ORACLE_EVALS, batch_size=ORACLE_BATCH)
 QAMA_FLAGS = _flags(PUBLISHED_FLAGS, max_eval_batches=ORACLE_EVALS, batch_size=ORACLE_BATCH,
                     swap={"--no-quantize-after-mult-and-add": "--quantize-after-mult-and-add"})
-OFUF_FLAGS = _flags(APPROX_FLAGS, max_eval_batches=ORACLE_EVALS, batch_size=ORACLE_BATCH) + [
+OFUF_FLAGS = K3_ORACLE_FLAGS + [
     "--sim_hw_add_OFUF", "--with_OF_opt", "--with_UF_opt"]
 
 
@@ -864,12 +887,12 @@ OFUF_FLAGS = _flags(APPROX_FLAGS, max_eval_batches=ORACLE_EVALS, batch_size=ORAC
 def captured_runs(cli, record):
     """Records, for every ``validate-quantized`` run inside, the model
     (``record["model"]``), the wall seconds of its calibration
-    (``record["calib_s"]``, synced) and the top-1 predictions of its eval
-    batches (``record["preds"]``)."""
+    (``record["calib_s"]``, synced) and the f32 logits of its eval batches
+    on the host (``record["logits"]``)."""
     from fp8_quantization_tpu_torch.eval import driver
 
     setup, calibrate, update = cli.setup, driver.calibrate, driver.update_metrics
-    record.update(preds=[])
+    record.update(logits=[])
 
     def setup_call(args):
         out = setup(args)
@@ -885,7 +908,7 @@ def captured_runs(cli, record):
         return out
 
     def update_call(state, logits, labels, **kw):
-        record["preds"].append(logits.float().argmax(-1).cpu())
+        record["logits"].append(logits.float().cpu())
         return update(state, logits, labels, **kw)
 
     cli.setup, driver.calibrate, driver.update_metrics = setup_call, calibrate_call, update_call
@@ -956,19 +979,38 @@ def run_mse(cli, counters, name):
             or report["dense"] != DENSE_LAUNCHES_PER_FORWARD):
         raise SystemExit(f"{name} validate-quantized: wrong launch counts, a bad maxval or "
                          "bad metrics")
-    if name == "mse fixed-width packed" and packed != DENSE_LAUNCHES_PER_FORWARD:
-        raise SystemExit("the fixed-width MSE run left a dense layer unpacked")
+    if packing and packed != DENSE_LAUNCHES_PER_FORWARD:
+        raise SystemExit(f"{name}: a dense layer stayed unpacked")
     return {"ms": ms, "eval_ms": eval_ms, "calib_s": rec["calib_s"], "counts": counts,
             **report}
 
 
-def run_special(cli, counters, name, argv, k3_preds):
+def run_k3_oracle_batch(cli, counters):
+    """``K3_ORACLE_FLAGS``: the approx run method through K3 on the OF/UF
+    run's calibration and eval images; returns its eval logits."""
+    zero_counts(counters)
+    with captured_runs(cli, {}) as rec:
+        out, ms = run_cli(cli, K3_ORACLE_FLAGS)
+    counts = read_counts(counters)
+    rec.pop("model")
+    want = LAUNCHES_PER_FORWARD * (1 + 1 + ORACLE_EVALS)
+    phase("main", f"vit_quantized_approx at batch {ORACLE_BATCH}: {out['metrics']}, "
+                  f"{ms:.2f} ms/img over {out['images']} images, launches {counts} (K3 "
+                  f"expected {want})")
+    if counts["K3"] != want or not np.isfinite(out["metrics"]["loss"]):
+        raise SystemExit("approx validate-quantized at the oracle's batch: wrong launch count "
+                         "or bad metrics")
+    return rec["logits"][0]
+
+
+def run_special(cli, counters, name, argv, k3_logits):
     """A run method simulated in plain PyTorch, one eval batch: no hand
     kernel launches; quantize-after-mult-and-add calls ``qama_matmul_2d``
     on every dense product and the patch conv, the OF/UF adder the oracle on
     every approximate product (the CLI's init forward, the calibration batch
     and the eval batch). Prints ms/img and, for the oracle, the top-1
-    agreement with the K3 run's predictions on the same batch."""
+    agreement and the logits' relative RMS against the K3 run on the same
+    batch."""
     zero_counts(counters)
     with captured_runs(cli, {}) as rec, counted_calls({}, SPECIAL_COUNTED) as calls:
         out, ms = run_cli(cli, argv)
@@ -976,23 +1018,25 @@ def run_special(cli, counters, name, argv, k3_preds):
     rec.pop("model")
     key = "qama" if name == "qama" else "oracle"
     want = LAUNCHES_PER_FORWARD * (1 + 1 + ORACLE_EVALS)
-    agree = None
-    if k3_preds is not None:
-        ours, k3 = rec["preds"][0], k3_preds[0][:ORACLE_BATCH]
-        agree = float((ours == k3).float().mean())
+    agree = rms = None
+    if k3_logits is not None:
+        ours = rec["logits"][0]
+        agree = float((ours.argmax(-1) == k3_logits.argmax(-1)).float().mean())
+        rms = rel_rms(ours, k3_logits)
     eval_ms = 1e3 * (out["validate_s"] - rec["calib_s"]) / (out["images"] - ORACLE_BATCH)
     phase("main", f"vit_quantized {name}: {out['metrics']}, {ms:.2f} ms/img over "
                   f"{out['images']} images (calibration {rec['calib_s']:.2f} s, eval "
                   f"{eval_ms:.2f} ms/img; {card_power()}), {key} calls {calls[key]} (expected "
                   f"{want}), launches {counts}"
-                  + (f", top-1 agreement with the K3 run on the same batch {agree:.4f}"
-                     if agree is not None else ""))
+                  + (f", against the K3 run on the same batch: top-1 agreement {agree:.4f}, "
+                     f"logits' relative RMS {rms:.4g}" if agree is not None else ""))
     if (any(counts.values()) or calls[key] != want
             or calls["oracle" if key == "qama" else "qama"]
             or not np.isfinite(out["metrics"]["loss"])):
         raise SystemExit(f"{name} validate-quantized: a kernel launched, wrong call counts or "
                          "bad metrics")
-    return {"ms": ms, "eval_ms": eval_ms, "calib_s": rec["calib_s"], "agreement": agree}
+    return {"ms": ms, "eval_ms": eval_ms, "calib_s": rec["calib_s"], "agreement": agree,
+            "rel_rms": rms}
 
 
 def run_cli(cli, argv):
@@ -3613,9 +3657,9 @@ def main() -> int:
     max_err, k3_times = check_kernel_against_plain(k3, dev, 1e6 * sm_clock_mhz)
     gemm_err = check_gemms(fm, dm, dev)
     gemm_err["K1"] = check_k1(fm, dev)
-    width_err = check_widths(fm, dev)
-    gemm_err["K1"] = max(gemm_err["K1"], width_err["K1"])
-    gemm_err["K2"] = max(gemm_err["K2"], width_err["K2"])
+    width_err = check_widths(fm, dm, dev)
+    for key in width_err:
+        gemm_err[key] = max(gemm_err[key], width_err[key])
     attention_err, k7_vit = check_attention(LLAMA3_8B, dev)
     gemm_err.update(attention_err)
     check_k5(dm, dev)
@@ -3626,8 +3670,7 @@ def main() -> int:
     # 4. the main path: each run with every launch count zeroed just before
     counters = KERNELS
     zero_counts(counters)
-    with captured_runs(cli, {}) as k3_run:
-        out, approx_ms = run_cli(cli, APPROX_FLAGS)
+    out, approx_ms = run_cli(cli, APPROX_FLAGS)
     approx_counts = read_counts(counters)
     # the CLI's init forward (a zeros batch of one), one calibration batch
     # and two eval batches
@@ -3650,9 +3693,10 @@ def main() -> int:
     # methods simulated in plain PyTorch
     t_mse = time.perf_counter()
     mse = {name: run_mse(cli, counters, name) for name in MSE_RUNS}
+    k3_oracle_logits = run_k3_oracle_batch(cli, counters)
     special = {"qama": run_special(cli, counters, "qama", QAMA_FLAGS, None),
                "OF/UF oracle": run_special(cli, counters, "OF/UF oracle", OFUF_FLAGS,
-                                           k3_run["preds"])}
+                                           k3_oracle_logits)}
     mse_s = time.perf_counter() - t_mse
     # MobileNetV2 and ResNet-18/50 at full width, batch 16, and ViT-B/16's
     # uniform serving at the same batch
@@ -3793,7 +3837,9 @@ def main() -> int:
                               for run, r in mse.items())
                   + "; " + ", ".join(f"{run} {r['ms']:.2f} ms/img (eval {r['eval_ms']:.2f})"
                                      for run, r in special.items())
-                  + f", OF/UF top-1 agreement with K3 {special['OF/UF oracle']['agreement']:.4f}"
+                  + f", OF/UF against K3 at batch {ORACLE_BATCH}: top-1 agreement "
+                  f"{special['OF/UF oracle']['agreement']:.4f}, logits' relative RMS "
+                  f"{special['OF/UF oracle']['rel_rms']:.4g}"
                   f"; MSE depth-2 host re-search: {mse_model['tensor_diff']} of "
                   f"{mse_model['tensor_sites']} per-tensor sites, {mse_model['channel_diff']} of "
                   f"{mse_model['channels']} sampled channels differ; this slice's runs and "

@@ -28,7 +28,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..config import EstimatorConfig, OptMethod, QuantizerConfig, RangeMethod
-from ..numerics.fp8_ste import quantize_to_fp8_candidates
+from ..numerics.fp8_ste import quantize_to_fp8_widths
 
 EstState = Dict[str, torch.Tensor]
 Ranges = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]
@@ -202,18 +202,17 @@ def _fp_mse(cfg, qcfg, state, x, per_channel, channel_axis):
 def _candidate_mses(xf, grid, mbit_list, n_bits: int, sign_bits):
     """(n_mbits, ncand, C): the mean squared error of each row of ``xf``
     quantized on each candidate ``maxval`` of its column of ``grid`` at each
-    width of ``mbit_list``. A chunk of candidates is clipped once for all
-    widths."""
+    width of ``mbit_list``."""
     c, n = xf.shape
     step = _chunk(c * n)
     out = [[] for _ in mbit_list]
-    for s in range(0, grid.shape[0], step):
-        shared = {}
-        for i, mbits in enumerate(mbit_list):
-            q = quantize_to_fp8_candidates(xf[None], n_bits, grid[s:s + step, :, None], mbits,
-                                           sign_bits, shared=shared)
-            q.sub_(xf)
-            out[i].append(q.mul_(q).mean(dim=-1))
+    with torch.no_grad():
+        for s in range(0, grid.shape[0], step):
+            for i, q in enumerate(quantize_to_fp8_widths(xf[None], n_bits,
+                                                         grid[s:s + step, :, None],
+                                                         mbit_list, sign_bits)):
+                q.sub_(xf)
+                out[i].append(q.mul_(q).mean(dim=-1))
     return torch.stack([torch.cat(o) for o in out])
 
 

@@ -153,27 +153,33 @@ def _wide_operands(rng, m, k, n, ba, bias_b):
 @pytest.mark.parametrize("of,uf", OFUF, ids=["plain", "of", "uf", "of_uf"])
 def test_sim_hw_add_ofuf_matches_jax(rng, of, uf):
     """The integer-domain OF/UF adder against the JAX oracle, with the
-    golden fallback and under s2nn2s (the oracle's raw zero mask): each
-    product bit for bit (K = 1, where the sum is the product), the sums
-    within the Pallas tests' tolerance; the fix-ups change the result (the
-    underflow one only under s2nn2s: elsewhere an underflowing product is
-    subnormal and takes the golden value)."""
+    golden fallback and under s2nn2s (the oracle's raw zero mask): every
+    product bit for bit (one K = 1 call pairs each element of ``a`` with
+    each of ``b``: where the sum is the product), the sums over K = 16
+    within the Pallas tests' tolerance of JAX's products summed (the oracle
+    sums its elementwise products over K); the fix-ups change the result
+    (the underflow one only under s2nn2s: elsewhere an underflowing product
+    is subnormal and takes the golden value)."""
     ba, br = 5, 4
+    m, k, n = 12, 16, 6
     bias_b = np.array([3, 4, 5, 6, 7, 8], dtype=np.int32)
-    a, b = _wide_operands(rng, 12, 16, 6, ba, bias_b)
+    a, b = _wide_operands(rng, m, k, n, ba, bias_b)
     table = get_error_table(3, 4, True, 3)
     ta, tb, tbb = torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(bias_b)
+    # row (i, kk) of a_col and column (kk2, j) of b_row: a[i, kk] * b[kk2, j]
+    a_col, b_row, bias_row = a.reshape(-1, 1), b.reshape(1, -1), np.tile(bias_b, k)
     for s2 in (False, True):
         kw = dict(sim_hw_add_ofuf=True, with_of_opt=of, with_uf_opt=uf, with_s2nn2s_opt=s2)
-        for k in (1, 16):
-            want = np.asarray(_j_golden_full(a[:, :k], b[:k], 3, 4, ba, bias_b, br,
+        products = np.asarray(_j_golden_full(a_col, b_row, 3, 4, ba, bias_row, br,
                                              j_table(3, 4, True, 3), **kw))
-            ours = approx_matmul_golden(ta[:, :k], tb[:k], 3, 4, ba, tbb, br, table,
-                                        zero_mask="raw", **kw).numpy()
-            if k == 1:
-                np.testing.assert_array_equal(ours, want)
-            else:
-                np.testing.assert_allclose(ours, want, **TOL)
+        ours = approx_matmul_golden(torch.from_numpy(a_col), torch.from_numpy(b_row), 3, 4,
+                                    ba, torch.from_numpy(bias_row), br, table,
+                                    zero_mask="raw", **kw).numpy()
+        np.testing.assert_array_equal(ours, products)
+        pairs = products.reshape(m, k, k, n)[:, np.arange(k), np.arange(k), :]
+        ours = approx_matmul_golden(ta, tb, 3, 4, ba, tbb, br, table, zero_mask="raw",
+                                    **kw).numpy()
+        np.testing.assert_allclose(ours, pairs.astype(np.float64).sum(axis=1), **TOL)
         plain = approx_matmul_golden(ta, tb, 3, 4, ba, tbb, br, table, zero_mask="raw",
                                      sim_hw_add_ofuf=True, with_s2nn2s_opt=s2)
         if of or (uf and s2):

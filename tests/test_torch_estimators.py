@@ -31,12 +31,14 @@ import pytest
 import torch
 
 from fp8_quantization_tpu import config as jc
+from fp8_quantization_tpu.numerics import fp8_ste as j_fp8_ste
 from fp8_quantization_tpu.quant import estimators as je
+from fp8_quantization_tpu.quant import quantizers as j_quantizers
 from fp8_quantization_tpu.quant import sites as jsites
 from fp8_quantization_tpu_torch import config as tc
 from fp8_quantization_tpu_torch.models.bridge import from_jax_variables
-from fp8_quantization_tpu_torch.numerics.fp8_ste import (quantize_to_fp8_candidates,
-                                                         quantize_to_fp8_ste)
+from fp8_quantization_tpu_torch.numerics.fp8_ste import (quantize_to_fp8_ste,
+                                                         quantize_to_fp8_widths)
 from fp8_quantization_tpu_torch.ops.cuda import fused_matmul as k1
 from fp8_quantization_tpu_torch.quant import estimators as te
 from fp8_quantization_tpu_torch.quant import sites as tsites
@@ -49,6 +51,23 @@ RTOL = 1e-6
 _j_update = jax.jit(je.update, static_argnums=(0, 1, 4, 5))
 _j_line_search = jax.jit(je.line_search_ranges, static_argnums=(1, 2),
                          static_argnames=("opt_method",))
+
+
+def jit_jax_quantizer(mp):
+    """Has the JAX package's searches and sites call its
+    ``quantize_to_fp8_ste`` jitted (the function unchanged, its results bit
+    for bit the same): an MSE search calls it at every width of every site,
+    and tracing each call anew is most of a compile's time."""
+    jitted = jax.jit(j_fp8_ste.quantize_to_fp8_ste, static_argnums=(1,))
+    mp.setattr(je, "quantize_to_fp8_ste", jitted)
+    mp.setattr(j_quantizers, "quantize_to_fp8_ste", jitted)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jitted_jax_quantizer():
+    with pytest.MonkeyPatch.context() as mp:
+        jit_jax_quantizer(mp)
+        yield
 
 
 def _qcfg(mod, per_channel=False, elect=True, unsigned=False):
@@ -95,29 +114,24 @@ def hold_election(jstate, jranges, tstate, tranges, rtol=RTOL, atol=0.0, grid_to
 
 @pytest.mark.parametrize("mbits", range(1, 8))
 def test_candidate_quantizer_equals_plain(rng, mbits):
-    """The MSE search's lean quantizer equals ``quantize_to_fp8_ste`` bit for
+    """The MSE search's quantizer equals ``quantize_to_fp8_ste`` bit for
     bit, on zeros, subnormals, clip edges and NaN, signed and unsigned, on
     grids whose step leaves the normal floats (the plain fallback), and with
-    its clip shared across widths."""
+    its clip shared across widths (``mbits`` after another width)."""
     x = (rng.normal(size=(1, 5, 200)) * 3).astype(np.float32)
     x[0, 0, :6] = [0.0, -0.0, 1e-40, -1e-39, 3e-38, np.nan]
     mv = (np.abs(rng.normal(size=(9, 5, 1))) * 4 + 1e-3).astype(np.float32)
     mv[0, 0, 0], mv[1, 1, 0], mv[2, 2, 0] = x[0, 1].max(), 0.0, 1e-36
-    for sign in (0, 1):
-        tx, tm = torch.from_numpy(x), torch.from_numpy(mv)
-        plain = quantize_to_fp8_ste(tx, 8, tm, float(mbits), sign)[0]
-        lean = quantize_to_fp8_candidates(tx, 8, tm, float(mbits), torch.tensor(sign))
-        torch.testing.assert_close(lean, plain, rtol=0, atol=0, equal_nan=True)
-        # the fast pass itself, on the grids it takes, its clip shared with
-        # a call at another width
-        ok, shared = torch.from_numpy(mv[3:]), {}
-        quantize_to_fp8_candidates(tx, 8, ok, float(mbits % 7 + 1), torch.tensor(sign),
-                                   shared=shared)
-        torch.testing.assert_close(
-            quantize_to_fp8_candidates(tx, 8, ok, float(mbits), torch.tensor(sign),
-                                       shared=shared),
-            quantize_to_fp8_ste(tx, 8, ok, float(mbits), sign)[0], rtol=0, atol=0,
-            equal_nan=True)
+    tx = torch.from_numpy(x)
+    for grids in (mv, mv[3:]):                  # with and without fallback grids
+        tm = torch.from_numpy(grids)
+        for sign in (0, 1):
+            widths = [mbits % 7 + 1, mbits]
+            for m, lean in zip(widths, quantize_to_fp8_widths(tx, 8, tm, widths,
+                                                              torch.tensor(sign))):
+                torch.testing.assert_close(lean, quantize_to_fp8_ste(tx, 8, tm, float(m),
+                                                                     sign)[0],
+                                           rtol=0, atol=0, equal_nan=True)
 
 
 MSE_CASES = {

@@ -45,7 +45,7 @@ from fp8_quantization_tpu_torch.models.vit import QuantizedViT as TViT
 from fp8_quantization_tpu_torch.models.vit import ViTSpec as TSpec
 from fp8_quantization_tpu_torch.ops.cuda import approx_matmul as k3
 from fp8_quantization_tpu_torch.quant.sites import FIXED
-from test_torch_estimators import hold_election
+from test_torch_estimators import hold_election, jit_jax_quantizer
 
 torch.set_num_threads(1)  # the suite's test workers share the machine's cores
 
@@ -213,11 +213,11 @@ def _fresh_mse_states(tree, ecfg, qcfg):
     return {k: _fresh_mse_states(v, ecfg, qcfg) for k, v in tree.items()}
 
 
-def test_tiny_vit_mse_calibration_matches_jax():
+def test_tiny_vit_mse_calibration_matches_jax(monkeypatch):
     """The slice as a whole: the tiny ViT, cut to its first block, calibrated
     with MSE weights and activations on two batches, then FIXED and FAST.
-    (Tracing and compiling JAX's MSE calibration takes ~18 s a block on the
-    CPU; the blocks are alike.) Both start from the JAX init's parameters
+    (Tracing and compiling JAX's MSE calibration takes ~9 s a block on the
+    CPU, with its quantizer jitted; the blocks are alike.) Both start from the JAX init's parameters
     with fresh MSE states (the port's CLI resets its searches after the init
     forward; nothing in the JAX package changes for that): every site elects
     the same mantissa width by the election rule of
@@ -225,6 +225,7 @@ def test_tiny_vit_mse_calibration_matches_jax():
     logits agree within this file's tolerances."""
     from fp8_quantization_tpu_torch.quant.sites import FAST
 
+    jit_jax_quantizer(monkeypatch)
     rng = np.random.default_rng(SEED)
     calib = [rng.normal(size=(2, 32, 32, 3)).astype(np.float32) for _ in range(2)]
     x = rng.normal(size=(2, 32, 32, 3)).astype(np.float32)
@@ -236,9 +237,9 @@ def test_tiny_vit_mse_calibration_matches_jax():
     variables = {**init, "quant_est": _fresh_mse_states(
         init["quant_est"], jqc.act_range, jqc.act_quantizer())}
     calibrated = j_calibrate(jm, variables, calib, num_est_batches=2)
-    j_fixed, j_fast = (np.asarray(jax.jit(lambda v, x, qp=qp: jm.apply(v, x, qp))(
-        calibrated, jnp.asarray(x))).astype(np.float32)
-        for qp in (JPhase(), JPhase(phase="fixed", fast=True)))
+    j_fixed, j_fast = (np.asarray(y).astype(np.float32) for y in jax.jit(
+        lambda v, x: [jm.apply(v, x, qp) for qp in (JPhase(), JPhase(phase="fixed", fast=True))])(
+        calibrated, jnp.asarray(x)))
 
     tm = TViT(qc=_mse_qc(tc), spec=TSpec(**spec))
     tm.load_state_dict(from_jax_variables(_numpy_tree(variables)), strict=True)
