@@ -43,7 +43,13 @@ Phases, one line each (any failure exits non-zero; no phase is skipped):
    int32 sums (``fastpath.int8_conv_sums``) at every distinct conv of
    MobileNetV2 and ResNet-18 on a row slice, with the zero point's code 0
    and -128, equal to the CPU's, and timed per batch-16 forward beside
-   cuDNN's f32 convolution of the same codes. At the shapes of a batch-8 forward, in the configurations the main
+   cuDNN's f32 convolution of the same codes; K3 at the surgery model's
+   three distinct (K, N) on a 64-row slice, equal to its plain version, then
+   timed at every product of its batch-16 forward beside its bound; K2 and
+   K4 at its dense shapes (16 rows: route A; a 64-row slice: route B) and
+   the demo's 8x10x10; the int8 sums of its Conv1d and input-dilated
+   ConvTranspose1d (zero point's code 0 and -128 in holes and pads) equal
+   to the CPU's. At the shapes of a batch-8 forward, in the configurations the main
    path launches (K1 at every size it sees, K2 on bf16 x, K4 on bf16 and on
    coded x), checks each GEMM kernel against its plain version again and
    times it, its plain version and (for the GEMMs) cuBLAS, beside the card's
@@ -85,6 +91,27 @@ Phases, one line each (any failure exits non-zero; no phase is skipped):
    int8 conv calls equal to the counts its shapes imply
    (``cnn_expected``), and its ms/img printed beside the card's name and
    power limit.
+   Then the real-weights, images, demo and surgery runs: ``validate-quantized-demo`` (``demo_quantized``,
+   published, approx (K3), ``--fast-mode`` (K1, K2), ``--packed-weights``
+   (K1, K2, K4)), each held to a plain run of the same flags; a
+   ``QuantizedSequential`` of every new layer kind on 16 x 1024 x 64 (a
+   Conv1d, a stride-2 ConvTranspose1d with torch's padding and output
+   padding, an average pool with its own site, a tied
+   ``QuantizedActWrapper`` pool, a BNQuantDense and a Linear) through
+   ``eval.driver.validate_quantized``: approx, fast, packed and FP8 chained
+   logits equal to the plain versions' on the card, int8 packed and
+   chained within ``RMS_LIMIT`` of the CPU's; ``--model-dir`` on seeded
+   FP32 state dicts written under the sources' own names (HF ViT-B/16,
+   torchvision ResNet-18/50, the reference's MobileNetV2): every tensor
+   read but the BN counters, every ported entry equal to the file's after
+   its layout change, logits unlike a seeded-init run's; ViT-B/16
+   ``--fast-mode --packed-weights`` saved with ``--save-checkpoint-dir`` and
+   restored through ``--model-dir`` with every buffer equal; and
+   ``--images-dir`` on a folder of JPEG and PNG images it writes, through
+   the PIL pipeline and, where ``runtime/image_loader.cc`` builds,
+   ``--native-loader`` (within the PIL pipeline's tolerance); what is
+   missing for it is printed. Each run's launches equal the counts its
+   shapes imply.
    Then ``ContinuousBatcher`` serving Llama-3-8B at full width (32 layers,
    seeded random weights, calibrated as ``scripts/bench_llama.py`` does) with
    ``fused_sdpa=True``: 4 slots of 2048, greedy, prompts of 17, 100, 256 and
@@ -634,11 +661,11 @@ def gemm_verdict(fm, ours, plain_sum, x_eff, w_eff, res=None, plain=None):
     return route, ok and bool(torch.isfinite(ours.float()).all()), info["equal_fraction"]
 
 
-def check_gemms(fm, dm, dev):
+def check_gemms(fm, dm, dev, shapes=GEMM_CHECK_SHAPES):
     """K2 and K4 against their plain versions in every switch combination
     (K2: f32 x quantized on the load and bf16 x; K4: bf16, f32 quantized,
     f32 and coded x; requant or not; f32 or bf16 out) at
-    ``GEMM_CHECK_SHAPES``: route A (M <= 16) equal to the plain version, route
+    ``shapes``: route A (M <= 16) equal to the plain version, route
     B within ``within_requant_step``'s contract. The plain outputs are the
     plain version's f32 sum with its own requant and cast. Returns the worst
     |d| of each."""
@@ -663,7 +690,7 @@ def check_gemms(fm, dm, dev):
                                      f"version: {what} requant={requant} {out}")
         return route
 
-    for m, k, n in GEMM_CHECK_SHAPES:
+    for m, k, n in shapes:
         x, wq, bias = gemm_operands(m, k, n, dev, seed=m + k + n)
         w16 = wq.to(torch.bfloat16)
         xq = fm.quantize_block_plain(x, *act)
@@ -3598,6 +3625,573 @@ def check_cnn_serving(cli, dev, counters):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Real weights and images, the demo and the surgery layers:
+# validate-quantized-demo, a QuantizedSequential of every new layer kind,
+# --model-dir (torch state dicts under the sources' names, and the port's
+# checkpoints), --save-checkpoint-dir and --images-dir
+DEMO_FLAGS = ["validate-quantized-demo" if f == "validate-quantized" else
+              "demo_quantized" if f == "vit_quantized" else f for f in PUBLISHED_FLAGS]
+DEMO_RUNS = {
+    "published": DEMO_FLAGS,
+    "approx": [{"--no-approx_flag": "--approx_flag"}.get(f, f) for f in DEMO_FLAGS]
+    + ["--withComp", "--with_approx"],
+    "fast": DEMO_FLAGS + ["--fast-mode"],
+    "packed": DEMO_FLAGS + ["--fast-mode", "--packed-weights"],
+}
+# the demo's forwards: the init forward of a zeros input, one calibration
+# batch and the two eval batches of --max-eval-batches 2
+DEMO_EVALS = 2
+
+
+def demo_expected(mode):
+    """The demo's one ``QuantDense`` (10 -> 10) in a run: K3 in every
+    forward under approx; K1 for its act and res sites and K2 in the eval
+    forwards under ``--fast-mode``; under ``--packed-weights`` also in the
+    weight-cache forward, and K4 in the eval forwards."""
+    want = {name: 0 for name in ("K1", "K2", "K3", "K4", "K5", "K6", "K7")}
+    if mode == "approx":
+        want["K3"] = 2 + DEMO_EVALS
+    elif mode == "fast":
+        want["K1"], want["K2"] = 2 * DEMO_EVALS, DEMO_EVALS
+    elif mode == "packed":
+        want["K1"], want["K2"], want["K4"] = 2 + 2 * DEMO_EVALS, 1, DEMO_EVALS
+    return want
+
+
+def run_demo(cli, counters, mode):
+    """``validate-quantized-demo`` in one mode with every count zeroed just
+    before it, held to :func:`demo_expected`; then the same run through the
+    plain versions: approx logits equal to K3's plain version's bit for
+    bit, the serving modes' within ``RMS_LIMIT`` (M = 8 rows: K2 and K4 take
+    route A, which sums as the plain versions do). Returns (out, ms/img,
+    counts)."""
+    zero_counts(counters)
+    with captured_runs(cli, {}) as rec:
+        out, ms = run_cli(cli, DEMO_RUNS[mode])
+    counts = read_counts(counters)
+    with plain_kernels(), captured_runs(cli, {}) as plain:
+        run_cli(cli, DEMO_RUNS[mode])
+    logits, ref = torch.cat(rec["logits"]), torch.cat(plain["logits"])
+    rms, diff = rel_rms(logits, ref), float((logits - ref).abs().max())
+    want = demo_expected(mode)
+    ok = (counts == want and bool(torch.isfinite(logits).all())
+          and (torch.equal(logits, ref) if mode in ("approx", "published") else rms <= RMS_LIMIT))
+    phase("main", f"demo_quantized {mode}: {out['metrics']}, {ms:.3f} ms/img over "
+                  f"{out['images']} images ({card_power()}), launches {counts} (expected {want}); "
+                  f"logits against the plain run: max|d| {diff:.3g}, relative RMS {rms:.4g}, "
+                  f"ok={ok}")
+    if not ok:
+        raise SystemExit(f"validate-quantized-demo {mode}: wrong launch counts or logits")
+    return out, ms, counts
+
+
+# The surgery model: a QuantizedSequential with each new layer kind on 1-D
+# data (1024 positions of 64 channels, batch 16), then a tied
+# QuantizedActWrapper around a second average pool, then a sequential head:
+#   Conv 3 (-> QuantConv1d) + ReLU; ConvTranspose 3 / 2 with torch's padding
+#   1 and output padding 1 (2048 positions) + ReLU; AvgPool 4 (its own
+#   site: the input is quantized); tied wrapper: AvgPool 4 (128 positions);
+#   Flatten; Linear 8192 -> 256 + BatchNorm + ReLU (-> BNQuantDense);
+#   Linear 256 -> 1000
+SURGERY_BATCH = 16
+SURGERY_LENGTH, SURGERY_CH = 1024, 64
+SURGERY_HIDDEN, SURGERY_CLASSES = 256, 1000
+SURGERY_MODES = ("approx", "fast", "packed", "fp8 chained", "int8 packed", "int8 chained")
+SURGERY_EVALS = 2
+
+
+def surgery_specs():
+    from fp8_quantization_tpu_torch.models import porting
+    from fp8_quantization_tpu_torch.models import surgery as s
+
+    body = (s.Conv(SURGERY_CH, (3,), (1,)), s.Act("relu"),
+            s.ConvTranspose(SURGERY_CH, (3,), (2,),
+                            porting.conv_transpose_padding_from_torch((3,), 2, 1, 1)),
+            s.Act("relu"), s.AvgPool((4,)))
+    head = (s.Flatten(), s.Linear(SURGERY_HIDDEN), s.BatchNorm(), s.Act("relu"),
+            s.Linear(SURGERY_CLASSES))
+    return body, head
+
+
+class SurgeryNet(torch.nn.Module):
+    """The sequential body, the tied pool wrapper and the sequential head."""
+
+    def __init__(self, qc, generator):
+        from fp8_quantization_tpu_torch.models.surgery import QuantizedSequential
+        from fp8_quantization_tpu_torch.ops.layers import QuantizedActWrapper
+
+        super().__init__()
+        body, head = surgery_specs()
+        kw = dict(generator=generator)
+        self.body = QuantizedSequential(qc, body, (SURGERY_LENGTH, SURGERY_CH), **kw)
+        self.pool = QuantizedActWrapper(
+            qc, lambda x: torch.nn.functional.avg_pool1d(x.movedim(-1, 1), 4).movedim(1, -1),
+            tie_input_output=True)
+        length, ch = self.body.output_shape
+        self.head = QuantizedSequential(qc, head, (length // 4, ch), **kw)
+        with torch.no_grad():
+            for m in self.modules():
+                if hasattr(m, "var") and hasattr(m, "gamma"):
+                    m.mean.normal_(0.0, 0.1, generator=generator)
+                    m.var.uniform_(0.5, 1.5, generator=generator)
+
+    def forward(self, x, qp):
+        from fp8_quantization_tpu_torch.quant.sites import decoded
+
+        return decoded(self.head(self.pool(self.body(x, qp), qp), qp))
+
+
+def surgery_products(batch):
+    """The model's products of one forward: ``(name, M, K, N)``, M the
+    im2col rows at ``batch``."""
+    length = SURGERY_LENGTH
+    return [("conv1d 3", batch * length, 3 * SURGERY_CH, SURGERY_CH),
+            ("convT 3/2", batch * 2 * length, 3 * SURGERY_CH, SURGERY_CH),
+            ("linear+BN", batch, SURGERY_CH * 2 * length // 16, SURGERY_HIDDEN),
+            ("linear", batch, SURGERY_HIDDEN, SURGERY_CLASSES)]
+
+
+def surgery_expected(mode):
+    """Each kernel's launches in a surgery run (one calibration and two
+    eval forwards, as the driver makes them): approx, K3 for all four
+    products in every forward; ``--fast-mode``, K1 for the act and res site
+    of each layer (8), the body's pool site and the tied wrapper's two calls
+    (11 a forward) and K2 for the two dense layers, in the eval forwards;
+    packed, also in the weight-cache forward, with K4 for the dense layers
+    in the eval forwards; FP8 chained as packed, less the act site that the
+    BN layer's pending ``Affine`` feeds (10 a forward); the uniform runs
+    launch none (two int8 conv calls an eval forward)."""
+    want = {name: 0 for name in ("K1", "K2", "K3", "K4", "K5", "K6", "K7")}
+    want["int8_conv"] = 0
+    if mode == "approx":
+        want["K3"] = 4 * (1 + SURGERY_EVALS)
+    elif mode == "fast":
+        want["K1"], want["K2"] = 11 * SURGERY_EVALS, 2 * SURGERY_EVALS
+    elif mode in ("packed", "fp8 chained"):
+        per = 10 if mode == "fp8 chained" else 11
+        want["K1"], want["K2"], want["K4"] = 11 + per * SURGERY_EVALS, 2, 2 * SURGERY_EVALS
+    else:
+        want["int8_conv"] = 2 * SURGERY_EVALS
+    return want
+
+
+def surgery_qc(cli, mode):
+    """The configuration and CLI flags of a mode, as the CNN runs take them."""
+    flags = cnn_flags("mobilenet_v2_quantized", mode)
+    return cli.config_from_args(cli.build_parser().parse_args(flags)), flags
+
+
+def surgery_batches(n, seed):
+    rng = np.random.default_rng(seed)
+    return [(rng.normal(size=(SURGERY_BATCH, SURGERY_LENGTH, SURGERY_CH)).astype(np.float32),
+             rng.integers(0, SURGERY_CLASSES, size=SURGERY_BATCH)) for _ in range(n)]
+
+
+def run_surgery(cli, counters, dev, mode):
+    """The surgery model through ``eval.driver.validate_quantized`` (one
+    calibration and two eval batches), counts zeroed just before it and held
+    to :func:`surgery_expected`; then the calibrated model's logits on the
+    first eval batch held to its plain path: approx, FAST, PACKED and FP8
+    CHAINED through the plain versions on the card, equal bit for bit (the
+    approximate products sit on the result grid, so K3's sums are exact; the
+    dense products have 16 rows, route A); the uniform runs against the same
+    model and phase on the CPU within ``RMS_LIMIT`` (the integer sums are
+    exact; BN's ``rsqrt`` is not correctly rounded on the card). Returns
+    (metrics, ms/img, counts)."""
+    from fp8_quantization_tpu_torch.eval import driver
+    from fp8_quantization_tpu_torch.quant.sites import QuantPhase
+
+    qc, flags = surgery_qc(cli, mode)
+    fast, packed = "--fast-mode" in flags, "--packed-weights" in flags
+    chained = "--chained-acts" in flags
+    # drawn on the host from the seed, then moved, as the CLI builds models
+    model = SurgeryNet(qc, torch.Generator().manual_seed(14)).to(dev)
+    calib, evals = surgery_batches(1, 20), surgery_batches(SURGERY_EVALS, 21)
+    example = torch.zeros((1, SURGERY_LENGTH, SURGERY_CH), device=dev)
+    zero_counts(counters)
+    with counted_calls({}) as calls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics, _ = driver.validate_quantized(model, calib, evals, fast=fast, packed=packed,
+                                               chained=chained, qc=qc, calib_example=example)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    counts = {**read_counts(counters), "int8_conv": calls["int8_conv"]}
+    want = surgery_expected(mode)
+    qp = QuantPhase(phase="fixed", fast=fast, packed=packed, chained=chained)
+    x = torch.from_numpy(evals[0][0]).to(dev)
+    with torch.no_grad():
+        logits = model(x, qp).float()
+        if mode.startswith("int8"):
+            model.cpu()
+            ref = model(x.cpu(), qp).float().to(dev)
+            model.to(dev)
+        else:
+            with plain_kernels():
+                ref = model(x, qp).float()
+    rms, diff = rel_rms(logits, ref), float((logits - ref).abs().max())
+    same = float((logits.argmax(-1) == ref.argmax(-1)).float().mean())
+    held = rms <= RMS_LIMIT if mode.startswith("int8") else torch.equal(logits, ref)
+    ok = counts == want and bool(torch.isfinite(logits).all()) and held and \
+        np.isfinite(metrics["loss"])
+    ms = 1e3 * seconds / (SURGERY_BATCH * (1 + SURGERY_EVALS))
+    phase("main", f"surgery model {mode} (Conv1d, ConvTranspose1d, pool sites, BNQuantDense, "
+                  f"{SURGERY_BATCH}x{SURGERY_LENGTH}x{SURGERY_CH}): {metrics}, {ms:.3f} ms/img "
+                  f"({card_power()}), launches {counts} (expected {want}); logits against "
+                  f"{'the CPU' if mode.startswith('int8') else 'the plain versions'}: max|d| "
+                  f"{diff:.3g}, relative RMS {rms:.4g}, top-1 agreement {same:.4f}, ok={ok}")
+    if not ok:
+        raise SystemExit(f"surgery model {mode}: wrong launch counts or logits")
+    del model
+    torch.cuda.empty_cache()
+    return metrics, ms, counts
+
+
+def check_k3_surgery(k3, dev, sm_clock_hz):
+    """Phase 3, the surgery model's shapes: K3 at each distinct (K, N) of
+    its products on a ``SLICE_ROWS`` row slice, bit for bit against its
+    plain version (the flagship requantizes every product onto the result
+    grid, so the sums are exact), then timed at every product of a
+    batch-16 forward beside its bound (the largest of the bytes over HBM
+    bandwidth, one table read a product and one f32 add a product).
+    Returns (worst |d|, per-forward times)."""
+    worst = 0.0
+    shapes = sorted({(k, n) for _, _, k, n in surgery_products(1)})
+    for k, n in shapes:
+        a, b, bb = grid_operands(SLICE_ROWS, k, n, dev, seed=k + n + 14, on_device=True)
+        ours = k3.approx_matmul(a, b, 5, bb, 5, **FLAGSHIP)
+        plain = k3.approx_matmul_plain(a, b, 5, bb, 5, **FLAGSHIP)
+        worst = max(worst, float((ours - plain).abs().max()))
+        if not (torch.equal(ours, plain) and bool(torch.isfinite(ours).all())):
+            raise SystemExit(f"K3 disagrees with its plain version at the surgery shape {k}x{n}")
+    table_reads_per_s = (torch.cuda.get_device_properties(dev).multi_processor_count
+                         * SHARED_WORDS_PER_SM_CLOCK * sm_clock_hz)
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "adds_ms": 0.0,
+              "launches": 0}
+    lines = []
+    for name, m, k, n in surgery_products(SURGERY_BATCH):
+        a, b, bb = grid_operands(m, k, n, dev, seed=m + k + n, on_device=True)
+        ms = cuda_ms(lambda: k3.approx_matmul(a, b, 5, bb, 5, **FLAGSHIP), 3)
+        plain_ms = cuda_ms(lambda: k3.approx_matmul_plain(a, b, 5, bb, 5, **FLAGSHIP), 1)
+        bytes_ms = 1e3 * 4 * (m * k + k * n + m * n + n + 2) / HBM_BYTES_PER_S
+        ops_ms = 1e3 * m * k * n / table_reads_per_s
+        adds_ms = 1e3 * m * k * n / F32_ADDS_PER_S
+        _add(totals, 1, ms=ms, plain_ms=plain_ms, bytes_ms=bytes_ms, ops_ms=ops_ms,
+             adds_ms=adds_ms)
+        totals["launches"] += 1
+        lines.append(f"{name} {m}x{k}x{n} {ms:.4f} ms (plain {plain_ms:.3f}, bound "
+                     f"{max(bytes_ms, ops_ms, adds_ms):.4f})")
+        del a, b
+    totals["bound_ms"] = max(totals["bytes_ms"], totals["ops_ms"], totals["adds_ms"])
+    totals["bound_by"] = "bytes" if totals["bytes_ms"] == totals["bound_ms"] else "operations"
+    phase("kernels", f"K3 at the surgery model's {len(shapes)} distinct (K, N) "
+                     f"({', '.join(f'{k}x{n}' for k, n in shapes)}), {SLICE_ROWS}-row slices: "
+                     f"equal to the plain version, max|d| {worst:.3g}; per batch-{SURGERY_BATCH} "
+                     f"forward {totals['ms']:.3f} ms (plain {totals['plain_ms']:.3f}), bound "
+                     f"{totals['bound_ms']:.4f} ms ({totals['bound_by']}; table reads "
+                     f"{totals['ops_ms']:.4f}, f32 adds {totals['adds_ms']:.4f}); by shape: "
+                     + "; ".join(lines))
+    torch.cuda.empty_cache()
+    return worst, totals
+
+
+# K2 and K4 at the slice's dense shapes: the surgery model's two linears at
+# its 16 rows (route A) and on a 64-row slice (route B), the demo's 10 x 10
+# at its 8 rows
+SURGERY_GEMM_SHAPES = ([(m, SURGERY_CH * 2 * SURGERY_LENGTH // 16, SURGERY_HIDDEN)
+                        for m in (SURGERY_BATCH, SLICE_ROWS)]
+                       + [(m, SURGERY_HIDDEN, SURGERY_CLASSES) for m in (SURGERY_BATCH, SLICE_ROWS)]
+                       + [(BATCH, 10, 10)])
+
+
+def check_int8_transpose(dev):
+    """Phase 3, the int8 sums of a transposed conv (input dilation 2, torch's
+    padding 1 and output padding 1) and of a 1-D conv on the card equal to
+    the CPU's, with the zero point's code 0 and -128 filling the holes and
+    the padding."""
+    from fp8_quantization_tpu_torch.models.porting import conv_transpose_padding_from_torch
+    from fp8_quantization_tpu_torch.ops.fastpath import int8_conv_sums
+
+    gen = torch.Generator().manual_seed(41)
+    x = torch.randint(-128, 128, (2, 256, SURGERY_CH), generator=gen, dtype=torch.int8)
+    w = torch.randint(-128, 128, (3, SURGERY_CH, SURGERY_CH), generator=gen, dtype=torch.int8)
+    cases = {"conv1d": dict(strides=(1,), padding="SAME", dilation=(1,)),
+             "convT 3/2": dict(strides=(1,), dilation=(1,), input_dilation=(2,),
+                               padding=conv_transpose_padding_from_torch((3,), 2, 1, 1))}
+    for name, kw in cases.items():
+        for cx in (0.0, -128.0):
+            ours = int8_conv_sums(x.to(dev), w.to(dev), torch.tensor(cx, device=dev),
+                                  with_xsum=True, **kw)
+            cpu = int8_conv_sums(x, w, torch.tensor(cx), with_xsum=True, **kw)
+            if not (torch.equal(ours[0].cpu(), cpu[0]) and torch.equal(ours[1].cpu(), cpu[1])):
+                raise SystemExit(f"int8 {name} sums on the card differ from the CPU's, cx {cx}")
+    phase("kernels", f"int8 sums of the surgery model's {' and '.join(cases)} (256 positions, "
+                     f"{SURGERY_CH} channels, cx 0 and -128 in the holes and pads): equal to "
+                     "the CPU int32 path")
+
+
+# --model-dir: seeded FP32 state dicts under the sources' own names, each
+# run on the flags of its earlier phase beside a run from the seeded init
+MODEL_DIR_RUNS = (("vit_quantized", "published"), ("vit_quantized", "fast"),
+                  ("resnet18_quantized", "published"), ("resnet50_quantized", "published"),
+                  ("mobilenet_v2_quantized", "published"))
+SOURCE_FILES = {"vit_quantized": "pytorch_model.bin", "resnet18_quantized": "resnet18.pth",
+                "resnet50_quantized": "resnet50.pth",
+                "mobilenet_v2_quantized": "mobilenet_v2.pth.tar"}
+
+
+def model_dir_flags(arch, mode):
+    if arch == "vit_quantized":
+        return SERVING_FLAGS["fast"] if mode == "fast" else PUBLISHED_FLAGS
+    return cnn_flags(arch, mode)
+
+
+def model_dir_expected(arch, mode):
+    if arch != "vit_quantized":
+        return cnn_expected(arch, mode)
+    want = {name: 0 for name in ("K1", "K2", "K3", "K4", "K5", "K6", "K7")}
+    if mode == "fast":
+        want["K1"], want["K2"] = K1_LAUNCHES_PER_FORWARD * 2, DENSE_LAUNCHES_PER_FORWARD * 2
+    return want
+
+
+def run_model_dir(cli, counters, tmp):
+    """``validate-quantized --model-dir`` on each of ``MODEL_DIR_RUNS`` at
+    full width: the file is a seeded FP32 state dict under the source's own
+    names (HF ``ViTForImageClassification``, torchvision ResNet with its BN
+    counters, the reference's MobileNetV2), written to ``tmp`` and deleted
+    after. Checks (a) every tensor of the file but the BN counters was read,
+    and every ported parameter and BN buffer of the run's model equals the
+    file's tensor after its layout change; (b) the eval logits differ from
+    a run of the same flags from the seeded init; (c) the launches equal
+    the earlier phases' for the same flags, the metrics finite. Prints the
+    file's write, load and porting seconds and each run's ms/img. Returns
+    {run: {...}}."""
+    import os
+
+    from fp8_quantization_tpu_torch.models import porting
+
+    out = {}
+    for arch in dict.fromkeys(a for a, _ in MODEL_DIR_RUNS):
+        path = os.path.join(tmp, SOURCE_FILES[arch])
+        t0 = time.perf_counter()
+        state = porting.seeded_source_state(arch, torch.Generator().manual_seed(7))
+        torch.save(state, path)
+        t1 = time.perf_counter()
+        loaded = torch.load(path, map_location="cpu", weights_only=True)
+        t2 = time.perf_counter()
+        used = porting.UsedKeys(loaded)
+        ported = porting.port_architecture(arch, used)
+        t3 = time.perf_counter()
+        unused = porting.unported_keys(used)
+        mb = os.path.getsize(path) / 2 ** 20
+        for a, mode in MODEL_DIR_RUNS:
+            if a != arch:
+                continue
+            flags = model_dir_flags(arch, mode)
+            with captured_runs(cli, {}) as seeded:
+                _, seeded_ms = run_cli(cli, flags)
+            del seeded["model"]
+            torch.cuda.empty_cache()
+            zero_counts(counters)
+            with captured_runs(cli, {}) as rec:
+                res, ms = run_cli(cli, flags + ["--model-dir", path])
+            counts = read_counts(counters)
+            model_state = {k: v for k, v in rec.pop("model").state_dict().items()
+                           if k in ported}
+            equal = all(torch.equal(model_state[k].cpu(), v) for k, v in ported.items())
+            logits, ref = torch.cat(rec["logits"]), torch.cat(seeded["logits"])
+            differ = not torch.equal(logits, ref)
+            want = model_dir_expected(arch, mode)
+            ok = (not unused and len(model_state) == len(ported) and equal and differ
+                  and all(counts[k] == want.get(k, 0) for k in counts)
+                  and np.isfinite(res["metrics"]["loss"]) and bool(torch.isfinite(logits).all()))
+            phase("main", f"{arch} {mode} --model-dir {os.path.basename(path)} ({mb:.1f} MiB, "
+                          f"{len(state)} tensors): write {t1 - t0:.2f} s, torch.load "
+                          f"{t2 - t1:.2f} s, porting {t3 - t2:.3f} s; unread tensors {unused} "
+                          f"(BN counters aside); {len(ported)} ported entries equal to the "
+                          f"file's after the layout change: {equal}; logits differ from the "
+                          f"seeded-init run: {differ} (max|d| "
+                          f"{float((logits - ref).abs().max()):.3g}); {res['metrics']}, "
+                          f"{ms:.2f} ms/img (the seeded run {seeded_ms:.2f}; {card_power()}), "
+                          f"launches {counts}, ok={ok}")
+            if not ok:
+                raise SystemExit(f"--model-dir {arch} {mode}: the file did not load as ported")
+            out[f"{arch} {mode}"] = {"counts": counts, "ms": ms, "seeded_ms": seeded_ms,
+                                     "metrics": res["metrics"], "load_s": t2 - t1,
+                                     "port_s": t3 - t2, "mib": mb}
+            del model_state, rec, seeded
+            torch.cuda.empty_cache()
+        del state, loaded, used, ported
+        os.remove(path)
+    return out
+
+
+@contextlib.contextmanager
+def setup_states(cli, record):
+    """Records, for every ``validate-quantized`` run inside, its model's
+    ``state_dict`` on the host right after ``cli.setup`` (the init forward
+    and ``--model-dir`` done), in ``record["states"]``."""
+    setup = cli.setup
+    record["states"] = []
+
+    def setup_call(args):
+        out = setup(args)
+        record["states"].append({k: v.detach().cpu().clone()
+                                 for k, v in out[0].state_dict().items()})
+        return out
+
+    cli.setup = setup_call
+    try:
+        yield record
+    finally:
+        cli.setup = setup
+
+
+def run_checkpoint(cli, counters, tmp):
+    """ViT-B/16 ``--fast-mode --packed-weights`` with ``--save-checkpoint-dir``,
+    then a fresh run restored from it through ``--model-dir <dir>``: every
+    buffer of the restored model (weights, site state, ``mantissa_bits``,
+    BN-free ViT's weight caches and packed codes) equal to the saved model's
+    after its run; both runs' metrics and ms/img printed."""
+    import os
+
+    ckpt = os.path.join(tmp, "checkpoint")
+    flags = SERVING_FLAGS["packed"]
+    zero_counts(counters)
+    with captured_runs(cli, {}) as rec:
+        saved, ms = run_cli(cli, flags + ["--save-checkpoint-dir", ckpt])
+    counts = read_counts(counters)
+    final = {k: v.detach().cpu() for k, v in rec.pop("model").state_dict().items()}
+    mib = os.path.getsize(saved["checkpoint"]) / 2 ** 20
+    zero_counts(counters)
+    with setup_states(cli, {}) as st:
+        restored, ms2 = run_cli(cli, flags + ["--model-dir", ckpt])
+    counts2 = read_counts(counters)
+    state = st["states"][0]
+    same_keys = set(state) == set(final)
+    bad = [k for k in final if k not in state or state[k].dtype != final[k].dtype
+           or not torch.equal(state[k], final[k])]
+    kinds = {name: sum(1 for k in final if k.endswith(name))
+             for name in (".w_codes", ".w_q", ".mantissa_bits", ".kernel")}
+    ok = (same_keys and not bad and kinds[".w_codes"] >= DENSE_LAUNCHES_PER_FORWARD
+          and counts2 == counts and np.isfinite(restored["metrics"]["loss"]))
+    phase("main", f"vit_quantized --fast-mode --packed-weights --save-checkpoint-dir: "
+                  f"{saved['metrics']}, {ms:.2f} ms/img; checkpoint {mib:.1f} MiB, "
+                  f"{len(final)} buffers ({kinds}); restored through --model-dir: {len(bad)} "
+                  f"buffers differ from the saved model's, {restored['metrics']}, {ms2:.2f} "
+                  f"ms/img ({card_power()}), launches {counts2} (the saving run's {counts}), "
+                  f"ok={ok}")
+    if not ok:
+        raise SystemExit(f"checkpoint round trip: {bad[:5]} differ")
+    os.remove(saved["checkpoint"])
+    return {"ms": ms, "restored_ms": ms2, "mib": mib, "counts": counts2}
+
+
+def write_image_folder(root, per_class=8, classes=("0", "1"), seed=0):
+    """``root/{train,val}/<class>/``: JPEG and PNG images, smooth gradients
+    with noise, sides 180..420 (portrait and landscape)."""
+    import os
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for split in ("train", "val"):
+        for ci, cls in enumerate(classes):
+            d = os.path.join(root, split, cls)
+            os.makedirs(d, exist_ok=True)
+            for i in range(per_class):
+                w, h = (int(v) for v in rng.integers(180, 420, size=2))
+                yy, xx = np.mgrid[0:h, 0:w]
+                arr = np.stack([xx * 255 / (w - 1), yy * 255 / (h - 1),
+                                rng.uniform(0, 255, (h, w))], axis=-1).astype(np.uint8)
+                img = Image.fromarray(arr)
+                if (i + ci) % 2:
+                    img.save(os.path.join(d, f"img_{i}.png"))
+                else:
+                    img.save(os.path.join(d, f"img_{i}.jpg"), quality=95)
+
+
+def run_images_dir(cli, counters, tmp):
+    """ViT-B/16 on the published flags with ``--images-dir`` (evaluation
+    from ``val/``, calibration from ``train/``): through the PIL pipeline,
+    and through ``--native-loader`` where ``runtime/image_loader.cc`` builds
+    here (g++, libjpeg, libpng); the two loaders' val batches within
+    ``tests/test_native_loader.py``'s tolerance. What is missing on this
+    machine is printed, with what could not run. Returns {loader: ms/img}."""
+    import os
+
+    from fp8_quantization_tpu_torch.eval import data, native_data
+
+    try:
+        import PIL
+    except ImportError:
+        phase("main", "--images-dir: Pillow is missing, so neither the image "
+                      "folder could be written nor the PIL pipeline run; the native loader "
+                      "was not run either (its batches are held to the PIL ones)")
+        return {}
+    root = os.path.join(tmp, "images")
+    write_image_folder(root)
+    flags = [f for f in PUBLISHED_FLAGS if f != "--synthetic-data"] + ["--images-dir", root]
+    native = native_data.available()
+    runs = {"PIL": flags} | ({"native": flags + ["--native-loader", "--num-workers", "8"]}
+                             if native else {})
+    if not native:
+        phase("main", f"--images-dir: the native loader does not build here "
+                      f"({native_data.build_error}); the PIL pipeline runs alone")
+    out = {}
+    for loader, argv in runs.items():
+        zero_counts(counters)
+        res, ms = run_cli(cli, argv)
+        counts = read_counts(counters)
+        ok = (res["images"] == 8 + 16 and np.isfinite(res["metrics"]["loss"])
+              and not any(counts.values()))
+        phase("main", f"vit_quantized --images-dir ({loader} loader, Pillow {PIL.__version__}): "
+                      f"{res['metrics']}, {ms:.2f} ms/img over {res['images']} images "
+                      f"({card_power()}), launches {counts}, ok={ok}")
+        if not ok:
+            raise SystemExit(f"--images-dir with the {loader} loader failed")
+        out[loader] = ms
+    if native:
+        tol = 2.0 / 255.0 / float(min(data.IMAGENET_STD))
+        worst, mean = 0.0, 0.0
+        pil = list(data.imagenet_val_batches(root, BATCH, image_size=224))
+        nat = list(native_data.imagenet_val_batches_native(root, BATCH, image_size=224))
+        for (x, y), (nx, ny) in zip(pil, nat):
+            d = np.abs(x - nx)
+            worst, mean = max(worst, float(d.max())), max(mean, float(d.mean()))
+            if not np.array_equal(y, ny):
+                raise SystemExit("the native loader's labels differ from the PIL pipeline's")
+        ok = len(pil) == len(nat) == 2 and worst <= tol and mean <= tol / 4
+        phase("main", f"--images-dir loaders: native against PIL over {len(pil)} val batches: "
+                      f"max |d| {worst:.4g} (limit {tol:.4g}), largest batch mean {mean:.4g} "
+                      f"(limit {tol / 4:.4g}), ok={ok}")
+        if not ok:
+            raise SystemExit("the native loader's batches leave the PIL pipeline's tolerance")
+    return out
+
+
+def run_weights_and_surgery(cli, counters, dev):
+    """Phase 4's weights, images, demo and surgery runs; returns their
+    records and wall seconds."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    rec = {"demo": {mode: run_demo(cli, counters, mode) for mode in DEMO_RUNS},
+           "surgery": {mode: run_surgery(cli, counters, dev, mode) for mode in SURGERY_MODES}}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        rec["model_dir"] = run_model_dir(cli, counters, tmp)
+        rec["checkpoint"] = run_checkpoint(cli, counters, tmp)
+        rec["images"] = run_images_dir(cli, counters, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -3666,6 +4260,15 @@ def main() -> int:
     cnn_err, k3_cnn = check_k3_cnn(k3, dev, 1e6 * sm_clock_mhz)
     max_err = max(max_err, cnn_err)
     int8_conv = check_int8_conv(dev)
+    # the surgery model's and the demo's shapes
+    t_surgery = time.perf_counter()
+    surgery_err, k3_surgery = check_k3_surgery(k3, dev, 1e6 * sm_clock_mhz)
+    max_err = max(max_err, surgery_err)
+    surgery_gemm_err = check_gemms(fm, dm, dev, SURGERY_GEMM_SHAPES)
+    for key in surgery_gemm_err:
+        gemm_err[key] = max(gemm_err[key], surgery_gemm_err[key])
+    check_int8_transpose(dev)
+    surgery_kernels_s = time.perf_counter() - t_surgery
 
     # 4. the main path: each run with every launch count zeroed just before
     counters = KERNELS
@@ -3703,6 +4306,8 @@ def main() -> int:
     t_cnn = time.perf_counter()
     cnn = {f"{arch} {mode}": run_cnn(cli, counters, arch, mode) for arch, mode in CNN_RUNS}
     cnn_s = time.perf_counter() - t_cnn
+    # the demo, the surgery model, --model-dir, checkpoints and --images-dir
+    surgery_io = run_weights_and_surgery(cli, counters, dev)
 
     # K1, K2 and K4 checked and timed at the shapes of one batch-8 forward
     times = time_serving_kernels(fm, dm, dev, gemm_err)
@@ -3795,6 +4400,19 @@ def main() -> int:
         # (launches per run; no K6 on a paged target decode)
         **({"paged_launches": {run: r["counts"][key] for run, r in paged.items()}}
            if key in ("K1", "K2", "K4", "K6", "K7") else {}),
+        # the weights, images, demo and surgery runs of phase 4 (launches per
+        # run) and K3 per batch-16
+        # forward of the surgery model
+        **({"surgery_io_launches": {
+            **{f"demo {m}": r[2][key] for m, r in surgery_io["demo"].items()},
+            **{f"surgery {m}": r[2][key] for m, r in surgery_io["surgery"].items()},
+            **{f"--model-dir {run}": r["counts"][key]
+               for run, r in surgery_io["model_dir"].items()},
+            "checkpoint restore": surgery_io["checkpoint"]["counts"][key]}}
+           if key in ("K1", "K2", "K3", "K4") else {}),
+        **({"per_surgery_forward": {f: k3_surgery[f] for f in ("launches", "ms", "plain_ms",
+                                                                "bound_ms", "bound_by")}}
+           if key == "K3" else {}),
     } for name, key, src, tpu, launches, err in kernels]}
     step = "; ".join([f"{key} {t['step']['ms']:.3f} ms (bound {t['step']['bound_ms']:.3f}, "
                       f"torch.matmul {t['step']['library_ms']:.3f})"
@@ -3844,6 +4462,21 @@ def main() -> int:
                   f"{mse_model['tensor_sites']} per-tensor sites, {mse_model['channel_diff']} of "
                   f"{mse_model['channels']} sampled channels differ; this slice's runs and "
                   f"checks {mse_s:.1f} s"
+                  + "; demo ms/img " + ", ".join(
+                      f"{m} {r[1]:.3f}" for m, r in surgery_io["demo"].items())
+                  + "; surgery model ms/img " + ", ".join(
+                      f"{m} {r[1]:.3f}" for m, r in surgery_io["surgery"].items())
+                  + f", K3 per forward {k3_surgery['ms']:.3f} ms (bound "
+                  f"{k3_surgery['bound_ms']:.4f}); --model-dir " + ", ".join(
+                      f"{run} load {r['load_s']:.2f} s port {r['port_s']:.3f} s "
+                      f"{r['ms']:.2f} ms/img" for run, r in surgery_io["model_dir"].items())
+                  + f"; checkpoint {surgery_io['checkpoint']['mib']:.1f} MiB, restored run "
+                  f"{surgery_io['checkpoint']['restored_ms']:.2f} ms/img; --images-dir "
+                  + (", ".join(f"{k} {v:.2f} ms/img" for k, v in surgery_io["images"].items())
+                     or "not run")
+                  + f"; the weights, images, demo and surgery checks {surgery_kernels_s:.1f} s "
+                  "and runs "
+                  f"{surgery_io['seconds']:.1f} s"
                   + f"; {served}; per batch-{BATCH} forward (K1-K4) or serving run (K5, K6, "
                   "K7): "
                   f"{per_forward}; K7 per batch-{BATCH} ViT-B/16 forward {k7_vit['ms']:.4f} ms "

@@ -1,23 +1,31 @@
-"""Command-line interface: ``validate-quantized`` (port of ``cli.py``).
+"""Command-line interface: ``validate-quantized`` and
+``validate-quantized-demo`` (port of ``cli.py``).
 
-Same command, flags and defaults as the JAX package's CLI, so the reference's
-flag sets (``scripts/image_net.sh``) run unchanged:
+Same commands, flags and defaults as the JAX package's CLI, so the
+reference's flag sets (``scripts/image_net.sh``) run unchanged:
 
     python -m fp8_quantization_tpu_torch.cli validate-quantized \\
         --architecture vit_quantized_approx --synthetic-data ... \\
         --approx_flag --withComp --with_approx
 
 The port runs ``vit_quantized``, ``mobilenet_v2_quantized``,
-``resnet18_quantized``, ``resnet50_quantized`` and their ``_approx`` twins
-on seeded random weights and synthetic data, in the fixed phase (with
-``--reestimate-bn-batches`` for the CNNs' BN) and in the serving modes
-``--fast-mode``, ``--packed-weights`` and ``--chained-acts``, with the FP
-quantizer and with the uniform ones (int8 and int4 conv and dense serving),
-with every range estimator (the MSE search with its mantissa-width
-election among them) and every run method (the approximate multiplier, its
-OF/UF adder, self-check and debug modes through the plain oracle, and
-quantize-after-mult-and-add). ``demo_quantized``, checkpoints and the
-ImageNet loaders raise.
+``resnet18_quantized``, ``resnet50_quantized``, their ``_approx`` twins and
+``demo_quantized``, in the fixed phase (with ``--reestimate-bn-batches`` for
+the CNNs' BN) and in the serving modes ``--fast-mode``, ``--packed-weights``
+and ``--chained-acts``, with the FP quantizer and with the uniform ones
+(int8 and int4 conv and dense serving), with every range estimator (the MSE
+search with its mantissa-width election among them) and every run method
+(the approximate multiplier, its OF/UF adder, self-check and debug modes
+through the plain oracle, and quantize-after-mult-and-add).
+
+Weights: seeded random ones, or ``--model-dir``: a torch state dict
+(``.pth``, ``.pth.tar``, ``.pt``, ``.bin``; torchvision / reference CNN and
+HF ViT names, through ``models.porting``) or a checkpoint of the port's own
+(``utils.checkpoint``, which ``--save-checkpoint-dir`` writes after the run).
+Data: synthetic batches, or ``--images-dir``: evaluation from ``<dir>/val``,
+calibration and BN re-estimation batches from ``<dir>/train``
+(``eval.data``; ``--native-loader`` decodes the val batches in C++ threads,
+``eval.native_data``). The mesh flags raise.
 ``--cuda`` (the default) runs on the GPU and raises when there is none;
 ``--no-cuda`` runs on the CPU.
 """
@@ -169,6 +177,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="fp8_quantization_tpu_torch.cli")
     sub = parser.add_subparsers(dest="command", required=True)
     _common(sub.add_parser("validate-quantized"))
+    _common(sub.add_parser("validate-quantized-demo"))
     return parser
 
 
@@ -242,8 +251,9 @@ def select_device(use_cuda: bool) -> torch.device:
 def build_model(arch: str, qc: QuantConfig, device, generator, spec=None):
     """(model on ``device``, zeros example batch of one). ``spec`` defaults to
     the architecture's full size (ViT-B/16, MobileNetV2 1.0 at 224,
-    ResNet-18/50 at 224). Weights are drawn on the CPU from ``generator`` and
-    then moved, so a seed gives the same weights on every device."""
+    ResNet-18/50 at 224; the demo's one 10->10 dense). Weights are drawn on
+    the CPU from ``generator`` and then moved, so a seed gives the same
+    weights on every device."""
     base = arch.replace("_approx", "")
     if base == "vit_quantized":
         from .models.vit import VIT_B_16, QuantizedViT
@@ -258,23 +268,41 @@ def build_model(arch: str, qc: QuantConfig, device, generator, spec=None):
 
         model = QuantizedResNet(qc=qc, spec=spec or ResNetSpec(depth=int(base[6:8])),
                                 generator=generator)
+    elif base == "demo_quantized":
+        from .models.demo import QuantizedDemoModel
+
+        model = QuantizedDemoModel(qc, generator=generator).to(device)
+        return model, torch.zeros((1, model.features), device=device)
     else:
-        raise NotImplementedError(f"architecture {arch} {_LATER}")
+        raise ValueError(f"unknown architecture {arch}")
     model = model.to(device)
     size = model.spec.image_size
     return model, torch.zeros((1, size, size, 3), device=device)
 
 
+def load_weights(arch: str, model, model_dir):
+    """Load ``--model-dir`` into ``model`` in place: a torch state dict
+    (``models.porting.TORCH_SUFFIXES``) through ``models.porting``, read with
+    ``weights_only=True``, anything else as a checkpoint of the port's own
+    (``utils.checkpoint``). Returns the model."""
+    if model_dir is None:
+        logger.warning("no --model-dir given; using randomly initialized weights")
+        return model
+    from .models import porting
+
+    if model_dir.endswith(porting.TORCH_SUFFIXES):
+        state = torch.load(model_dir, map_location="cpu", weights_only=True)
+        ported = porting.port_architecture(arch, state, model)
+        model.load_state_dict(porting.merge_ported(model.state_dict(), ported))
+        return model
+    from .utils.checkpoint import load_checkpoint
+
+    return load_checkpoint(model_dir, model)
+
+
 def _reject_unported(args):
-    unported = {
-        "--model-dir": args.model_dir,
-        "--images-dir (ImageNet loaders)": args.images_dir and not args.synthetic_data,
-        "--save-checkpoint-dir": args.save_checkpoint_dir,
-        "--mesh-data / --mesh-model": args.mesh_data * args.mesh_model > 1,
-    }
-    for flag, given in unported.items():
-        if given:
-            raise NotImplementedError(f"{flag} {_LATER}")
+    if args.mesh_data * args.mesh_model > 1:
+        raise NotImplementedError(f"--mesh-data / --mesh-model {_LATER}")
 
 
 def sync(device: torch.device):
@@ -285,10 +313,14 @@ def sync(device: torch.device):
 def setup(args):
     """(model, device, qc, example): the device, the configuration, the model
     with its init forward done and the zeros example batch it was done on,
-    as ``validate-quantized`` starts."""
+    and then its ``--model-dir`` weights loaded, as ``validate-quantized``
+    starts."""
     from .quant.sites import ESTIMATE, reset_search_grids
+    from .utils.misc import seed_all
 
     _reject_unported(args)
+    if args.seed is not None:
+        seed_all(args.seed)
     device = select_device(args.cuda)
     # full-f32 products and convolutions on the GPU: TF32 (cuDNN's default
     # for convolutions) keeps ~3 decimal digits and would move values off
@@ -306,24 +338,66 @@ def setup(args):
     with torch.no_grad():
         model(example, ESTIMATE)
     reset_search_grids(model)
+    # as the JAX CLI, the weights come after the init forward (a checkpoint
+    # brings its own site state)
+    load_weights(args.architecture, model, args.model_dir)
     return model, device, qc, example
 
 
-def make_batches(args, model, max_batches=None):
-    """The ``--synthetic-data`` batches for ``model``'s input size."""
-    from .eval.data import synthetic_batches
+def _demo_batches(args, max_batches=None):
+    """The demo's batches: seeded (B, 10) normal inputs and labels in 0..9."""
+    import numpy as np
 
-    return synthetic_batches(args.batch_size, max_batches or 8,
-                             image_size=model.spec.image_size,
-                             num_classes=model.spec.num_classes, seed=args.seed or 10)
+    rng = np.random.default_rng(args.seed or 0)
+    return [(rng.normal(size=(args.batch_size, 10)).astype(np.float32),
+             rng.integers(0, 10, size=(args.batch_size,)))
+            for _ in range(max_batches or 4)]
+
+
+def make_batches(args, model, max_batches=None):
+    """The eval batches: the demo's, ``--synthetic-data`` ones for
+    ``model``'s input size, or ``<--images-dir>/val`` (through the native
+    loader under ``--native-loader`` where it builds)."""
+    from .eval import data
+
+    if args.architecture == "demo_quantized":
+        return _demo_batches(args, max_batches)
+    size = model.spec.image_size
+    if args.synthetic_data or not args.images_dir:
+        return data.synthetic_batches(args.batch_size, max_batches or 8, image_size=size,
+                                      num_classes=model.spec.num_classes,
+                                      seed=args.seed or 10)
+    if args.native_loader:
+        from .eval import native_data
+
+        if native_data.available():
+            return native_data.imagenet_val_batches_native(
+                args.images_dir, args.batch_size, image_size=size, max_batches=max_batches,
+                num_threads=args.num_workers)
+        print("warning: native loader unavailable, using PIL pipeline")
+    return data.imagenet_val_batches(args.images_dir, args.batch_size, image_size=size,
+                                     max_batches=max_batches)
+
+
+def make_train_batches(args, model, max_batches=None):
+    """Calibration and BN re-estimation batches: from ``<--images-dir>/train``
+    (the reference feeds its train loader), else as :func:`make_batches`."""
+    from .eval import data
+
+    if args.architecture == "demo_quantized" or args.synthetic_data or not args.images_dir:
+        return make_batches(args, model, max_batches)
+    return data.imagenet_train_batches(args.images_dir, args.batch_size,
+                                       image_size=model.spec.image_size,
+                                       max_batches=max_batches, seed=args.seed or 10)
 
 
 def run_validate(args) -> dict:
-    """Build, calibrate, (re-estimate BN,) evaluate and write the result
-    file. Returns ``{"metrics", "result_file", "device", "init_s",
-    "validate_s", "images"}``: ``validate_s`` is the wall time of
-    calibration, BN re-estimation and evaluation, ``images`` the images
-    those forwards took."""
+    """Build (and load ``--model-dir``), calibrate, (re-estimate BN,)
+    evaluate, write the result file and (``--save-checkpoint-dir``) save
+    the calibrated model. Returns ``{"metrics", "result_file", "device",
+    "init_s", "validate_s", "images", "checkpoint"}``: ``validate_s`` is the
+    wall time of calibration, BN re-estimation and evaluation, ``images``
+    the images those forwards took, ``checkpoint`` the file saved or None."""
     from .eval import data as data_mod
     from .eval.driver import validate_quantized, write_result_file
 
@@ -333,19 +407,18 @@ def run_validate(args) -> dict:
     t1 = time.perf_counter()
 
     # batches are made up front so that the timed run holds no data making
-    calib = list(make_batches(args, model, args.num_est_batches))[:args.num_est_batches]
+    calib = list(make_train_batches(args, model, args.num_est_batches))[:args.num_est_batches]
     if args.mini_test:
         eval_batches = list(data_mod.strided_batches(
             make_batches(args, model), args.mini_test_batches, args.mini_test_start,
             args.mini_test_step))
     else:
         eval_batches = list(make_batches(args, model, args.max_eval_batches))
-    # BN re-estimation batches come from the calibration data, as the JAX
-    # CLI takes both from its training batches
-    bn_batches = (list(make_batches(args, model, args.reestimate_bn_batches))
+    # BN re-estimation batches come from the training data, as calibration's
+    bn_batches = (list(make_train_batches(args, model, args.reestimate_bn_batches))
                   [:args.reestimate_bn_batches] if args.reestimate_bn_batches else None)
     t2 = time.perf_counter()
-    metrics, _ = validate_quantized(
+    metrics, calibrated = validate_quantized(
         model, calib, eval_batches, num_est_batches=args.num_est_batches,
         quant_w=args.weight_quant, quant_a=args.act_quant, fast=args.fast_mode,
         packed=args.packed_weights, chained=args.chained_acts, qc=qc,
@@ -357,15 +430,22 @@ def run_validate(args) -> dict:
                              qc.run_method, metrics)
     print(f"final_metrics: {metrics}")
     print(f"results written to {path}")
+    checkpoint = None
+    if args.save_checkpoint_dir:
+        from .utils.checkpoint import save_checkpoint
+
+        checkpoint = save_checkpoint(args.save_checkpoint_dir, calibrated)
+        print(f"checkpoint saved to {args.save_checkpoint_dir}")
     return {"metrics": metrics, "result_file": path, "device": str(device),
             "init_s": t1 - t0, "validate_s": t3 - t2,
-            "images": sum(len(y) for _, y in calib + eval_batches + (bn_batches or []))}
+            "images": sum(len(y) for _, y in calib + eval_batches + (bn_batches or [])),
+            "checkpoint": checkpoint}
 
 
 def main(argv=None):
     logging.basicConfig(level=os.environ.get("LOGLEVEL", "INFO"))
     args = build_parser().parse_args(argv)
-    if args.command == "validate-quantized":
+    if args.command in ("validate-quantized", "validate-quantized-demo"):
         return run_validate(args)
     raise SystemExit(f"unknown command {args.command}")
 

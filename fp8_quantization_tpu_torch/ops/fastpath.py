@@ -25,6 +25,7 @@ folds it into the next act site).
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -208,14 +209,15 @@ def quantize_acts_affine(aff, scale, zero_point, int_min, int_max):
 
 
 def int8_conv_sums(x_codes, w_codes, cx, *, strides, padding, dilation, groups: int = 1,
-                   with_xsum: bool = False):
-    """The exact int32 sums of a convolution of int8 codes: x (B, H, W, I),
-    w (kh, kw, I/g, O), padding filled with the zero point's code ``cx``
-    (so a padded tap is exactly the value 0). Returns ``(acc, xsum)``: acc
-    (B, Ho, Wo, O) int32, and with ``with_xsum`` each group's window sum of
-    the padded codes (B, Ho, Wo, g), the zero-point term of weights with a
-    zero point (else None). The JAX package sums in ``lax.conv`` on int8
-    operands into int32; PyTorch has no such convolution on CUDA, so:
+                   with_xsum: bool = False, input_dilation=None):
+    """The exact int32 sums of a convolution of int8 codes of spatial rank 1
+    or 2: x (B, *S, I), w (*K, I/g, O), padding and input-dilation holes
+    filled with the zero point's code ``cx`` (so a padded tap is exactly the
+    value 0). Returns ``(acc, xsum)``: acc (B, *S_out, O) int32, and with
+    ``with_xsum`` each group's window sum of the padded codes (B, *S_out,
+    g), the zero-point term of weights with a zero point (else None). The
+    JAX package sums in ``lax.conv`` on int8 operands into int32; PyTorch
+    has no such convolution on CUDA, so:
 
     * ungrouped: im2col of the codes (``layers.conv_patches``) times the
       flattened kernel through :func:`int8_matmul` (``torch._int_mm`` on the
@@ -226,34 +228,37 @@ def int8_conv_sums(x_codes, w_codes, cx, *, strides, padding, dilation, groups: 
     Integer sums are exact in any order, so every device gives the same."""
     from .layers import conv_patches, conv_taps
 
-    kh, kw, ipg, o = w_codes.shape
+    *ksize, ipg, o = w_codes.shape
     fill = cx.to(torch.int8)
     if groups == 1:
-        patches = conv_patches(x_codes, w_codes.shape, strides, padding, dilation, fill)
+        patches = conv_patches(x_codes, w_codes.shape, strides, padding, dilation, fill,
+                               input_dilation)
         lead = patches.shape[:-1]
         acc = int8_matmul(patches.reshape(-1, patches.shape[-1]), w_codes.reshape(-1, o))
         xsum = (torch.sum(patches, dim=-1, keepdim=True, dtype=torch.int32)
                 if with_xsum else None)
         return acc.reshape(*lead, o), xsum
     og = o // groups
-    taps = conv_taps(x_codes.to(torch.int32), (kh, kw), strides, padding, dilation, fill)
-    b, ho, wo, _ = taps[0].shape
-    w = w_codes.reshape(kh * kw, ipg, groups, og).to(torch.int32)
-    acc = torch.zeros((b, ho, wo, groups, og), dtype=torch.int32, device=x_codes.device)
-    xsum = (torch.zeros((b, ho, wo, groups), dtype=torch.int32, device=x_codes.device)
+    taps = conv_taps(x_codes.to(torch.int32), ksize, strides, padding, dilation, fill,
+                     input_dilation)
+    lead = taps[0].shape[:-1]
+    w = w_codes.reshape(len(taps), ipg, groups, og).to(torch.int32)
+    acc = torch.zeros((*lead, groups, og), dtype=torch.int32, device=x_codes.device)
+    xsum = (torch.zeros((*lead, groups), dtype=torch.int32, device=x_codes.device)
             if with_xsum else None)
     for t, tap in enumerate(taps):
-        tap = tap.reshape(b, ho, wo, groups, ipg)
+        tap = tap.reshape(*lead, groups, ipg)
         for c in range(ipg):
             acc += tap[..., c, None] * w[t, c]
         if with_xsum:
             xsum += torch.sum(tap, dim=-1, dtype=torch.int32)
-    return acc.reshape(b, ho, wo, o), xsum
+    return acc.reshape(*lead, o), xsum
 
 
 def quantized_conv_int8(x_codes, w_codes, sx, scale, cx, wsum, *, strides, padding,
                         dilation, groups: int = 1, zp=None, bias=None,
-                        out_dtype=torch.float32, as_affine: bool = False):
+                        out_dtype=torch.float32, as_affine: bool = False,
+                        input_dilation=None):
     """The int8 convolution of uniform conv serving: the codes' exact int32
     sums (:func:`int8_conv_sums`, padding filled with the ``cx`` code), then
     one f32 epilogue with the zero points unfolded as rank-1 terms:
@@ -264,7 +269,9 @@ def quantized_conv_int8(x_codes, w_codes, sx, scale, cx, wsum, *, strides, paddi
     zero point in [0, 255] coordinates (``cw = zp - 128``), None for signed
     symmetric weights (the Xsum term is then skipped). x_codes (B, H, W, I)
     int8; w_codes (kh, kw, I/g, O) int8; scale (O,) f32; cx () f32,
-    integer-valued; wsum (O,) int32.
+    integer-valued; wsum (O,) int32. Spatial rank 1 works alike (NWC codes,
+    a (kw, I/g, O) kernel); ``input_dilation`` (a transposed conv) fills its
+    holes with ``cx`` as it fills the padding.
 
     ``as_affine`` (fused-boundary serving): return a pending
     ``quant.sites.Affine`` instead, the epilogue's constants folded into
@@ -272,13 +279,14 @@ def quantized_conv_int8(x_codes, w_codes, sx, scale, cx, wsum, *, strides, paddi
     Xsum term) done on the elements; BN, the clamp and the next act site
     fold on top."""
     acc, xsum = int8_conv_sums(x_codes, w_codes, cx, strides=strides, padding=padding,
-                               dilation=dilation, groups=groups, with_xsum=zp is not None)
+                               dilation=dilation, groups=groups, with_xsum=zp is not None,
+                               input_dilation=input_dilation)
 
     def xsum_term():
-        kh, kw, ipg, o = w_codes.shape
+        o = w_codes.shape[-1]
         cw = zp - 128.0
         xs = torch.repeat_interleave(xsum.to(torch.float32), o // groups, dim=-1) * cw
-        return xs, (kh * kw * ipg * cx) * cw
+        return xs, (math.prod(w_codes.shape[:-1]) * cx) * cw
 
     if as_affine:
         from ..quant.sites import Affine

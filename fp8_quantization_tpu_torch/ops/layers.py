@@ -1,6 +1,8 @@
 """Quantized layers with the reference's forward protocol (port of
-``ops/layers.py``: ``QuantDense``, 2-D ``QuantConv`` (grouped and depthwise
-too), ``BNQuantConv`` with its unfolded BN, and ``QuantLayerNorm``).
+``ops/layers.py``: ``QuantDense``, ``QuantConv`` of spatial rank 1 and 2
+(grouped and depthwise too; ``QuantConv1d``), ``QuantConvTranspose(1d)``,
+``BNQuantConv`` and ``BNQuantDense`` with their unfolded BN,
+``QuantLayerNorm`` and ``QuantizedActWrapper``).
 
 Each layer holds up to three QuantSites (``activation_quantizer``,
 ``res_quantizer``, ``weight_quantizer``) and runs
@@ -459,17 +461,20 @@ def dense_product(x, w):
     return torch.matmul(x.to(torch.float32), w.to(torch.float32))
 
 
-def _explicit_padding(spatial, kernel, strides, dilation, padding):
+def _explicit_padding(spatial, kernel, strides, dilation, padding, input_dilation=None):
     """((lo, hi), ...) per spatial dim for "SAME"/"VALID" or explicit pairs,
-    as ``lax.conv_general_dilated`` reads them."""
+    as ``lax.conv_general_dilated`` reads them: string padding is resolved
+    on the input-dilated size (``(n - 1) * input_dilation + 1``)."""
     if not isinstance(padding, str):
         return tuple(tuple(int(v) for v in p) for p in padding)
     if padding == "VALID":
         return tuple((0, 0) for _ in spatial)
     if padding != "SAME":
         raise ValueError(f"unsupported padding {padding!r}")
+    ld = tuple(input_dilation) if input_dilation is not None else (1,) * len(spatial)
     pads = []
-    for n, k, s, d in zip(spatial, kernel, strides, dilation):
+    for n, k, s, d, l in zip(spatial, kernel, strides, dilation, ld):
+        n = (n - 1) * l + 1 if n else 0
         eff = d * (k - 1) + 1
         out = -(-n // s)
         total = max((out - 1) * s + eff - n, 0)
@@ -477,63 +482,81 @@ def _explicit_padding(spatial, kernel, strides, dilation, padding):
     return tuple(pads)
 
 
-def _pad_nchw(x, pads):
-    """F.pad takes the last dimension first."""
-    flat = []
-    for lo, hi in reversed(pads):
-        flat += [lo, hi]
-    return F.pad(x, flat)
+def dilate_and_pad(x, pads, input_dilation=None, fill=None):
+    """``x`` (B, *S, C) with ``input_dilation - 1`` holes between neighbours
+    of each spatial dim and ``pads`` ((lo, hi) per dim; a negative one
+    crops) around it, holes and pads filled with ``fill`` (a 0-dim tensor,
+    such as the zero point's int8 code) or zeros: ``lax.pad`` with interior
+    padding."""
+    spatial = x.shape[1:-1]
+    ld = tuple(input_dilation) if input_dilation is not None else (1,) * len(spatial)
+    if all(v == 1 for v in ld) and all(lo == 0 and hi == 0 for lo, hi in pads):
+        return x
+    dil = [(n - 1) * v + 1 if n else 0 for n, v in zip(spatial, ld)]
+    shape = (x.shape[0], *(d + max(lo, 0) + max(hi, 0) for d, (lo, hi) in zip(dil, pads)),
+             x.shape[-1])
+    xp = x.new_zeros(shape) if fill is None else fill.to(x.dtype).expand(shape).clone()
+    xp[(slice(None), *(slice(max(lo, 0), max(lo, 0) + d, v)
+                       for d, (lo, _), v in zip(dil, pads, ld)))] = x
+    return xp[(slice(None), *(slice(max(-lo, 0), size - max(-hi, 0))
+                              for size, (lo, hi) in zip(shape[1:-1], pads)))]
 
 
-def conv_taps(x, kernel_size, strides, padding, dilation, fill=None):
-    """The ``kh * kw`` taps of a convolution over an NHWC batch of any
-    dtype, in (kh, kw) order: tap (i, j) is the (B, Ho, Wo, I) strided view
-    of the padded input at each output's window position (i, j). Padding
-    is filled with ``fill`` (a 0-dim tensor, such as the zero point's int8
-    code) or with zeros."""
-    kh, kw = kernel_size
-    (t, bo), (le, ri) = _explicit_padding(x.shape[1:3], kernel_size, strides, dilation, padding)
-    if min(t, bo, le, ri) < 0:
-        raise ValueError(f"negative padding {padding!r}")
-    if t or bo or le or ri:
-        b, h, w, c = x.shape
-        shape = (b, h + t + bo, w + le + ri, c)
-        xp = x.new_zeros(shape) if fill is None else fill.to(x.dtype).expand(shape).clone()
-        xp[:, t:t + h, le:le + w] = x
-        x = xp
-    (sh, sw), (dh, dw) = strides, dilation
-    ho = (x.shape[1] - dh * (kh - 1) - 1) // sh + 1
-    wo = (x.shape[2] - dw * (kw - 1) - 1) // sw + 1
-    return [x[:, i * dh:i * dh + (ho - 1) * sh + 1:sh, j * dw:j * dw + (wo - 1) * sw + 1:sw]
-            for i in range(kh) for j in range(kw)]
+def conv_taps(x, kernel_size, strides, padding, dilation, fill=None, input_dilation=None):
+    """The ``prod(kernel_size)`` taps of a convolution of spatial rank 1 or
+    2 over a channels-last batch (B, *S, I) of any dtype, in kernel order:
+    tap ``t`` is the (B, *S_out, I) strided view of the dilated and padded
+    input (:func:`dilate_and_pad`) at each output's window position ``t``."""
+    pads = _explicit_padding(x.shape[1:-1], kernel_size, strides, dilation, padding,
+                             input_dilation)
+    x = dilate_and_pad(x, pads, input_dilation, fill)
+    outs = [(n - d * (k - 1) - 1) // s + 1
+            for n, k, s, d in zip(x.shape[1:-1], kernel_size, strides, dilation)]
+    return [x[(slice(None), *(slice(o * d, o * d + (n - 1) * s + 1, s)
+                              for o, d, s, n in zip(offs, dilation, strides, outs)))]
+            for offs in itertools.product(*(range(k) for k in kernel_size))]
 
 
-def conv_patches(x, kernel_shape, strides, padding, dilation, fill=None):
-    """im2col of an NHWC batch of any dtype: (B, Ho, Wo, kh*kw*I) patches
-    whose last dim is ordered (*K, I), matching a (*K, I, O) kernel
-    reshaped to ``(prod(K)*I, O)``; padding as :func:`conv_taps`."""
-    taps = conv_taps(x, kernel_shape[:2], strides, padding, dilation, fill)
-    b, ho, wo, in_ch = taps[0].shape
-    return torch.stack(taps, dim=3).reshape(b, ho, wo, len(taps) * in_ch)
+def conv_patches(x, kernel_shape, strides, padding, dilation, fill=None, input_dilation=None):
+    """im2col of a channels-last batch of any dtype: (B, *S_out, prod(K)*I)
+    patches whose last dim is ordered (*K, I), matching a (*K, I, O) kernel
+    reshaped to ``(prod(K)*I, O)``; padding and input dilation as
+    :func:`conv_taps`."""
+    taps = conv_taps(x, kernel_shape[:-2], strides, padding, dilation, fill, input_dilation)
+    lead, in_ch = taps[0].shape[:-1], taps[0].shape[-1]
+    return torch.stack(taps, dim=-2).reshape(*lead, len(taps) * in_ch)
+
+
+def conv_nd(x, w, strides, dilation, groups: int = 1):
+    """The f32 correlation of a channels-last batch (B, *S, I) already
+    padded with a (*K, I/g, O) kernel: ``F.conv1d`` or ``F.conv2d``."""
+    n = w.ndim - 2
+    conv = (F.conv1d, F.conv2d)[n - 1]
+    out = conv(x.movedim(-1, 1), w.permute(n + 1, n, *range(n)), stride=tuple(strides),
+               dilation=tuple(dilation), groups=groups)
+    return out.movedim(1, -1)
 
 
 class QuantConv(_QuantOpBase):
-    """Quantized 2-D convolution: NHWC inputs, ``(kh, kw, I/g, O)`` kernel
-    for ``g = feature_group_count`` groups (``g = I`` depthwise),
-    per-channel weight quantization along O. The plain product is
-    ``F.conv2d(groups=g)`` in f32; the approx path runs the im2col patches
-    through K3 for ``g = 1`` and through :func:`approx_matmul_oracle`, all
-    groups in one call, otherwise."""
+    """Quantized convolution of spatial rank 1 or 2: channels-last inputs
+    (NWC, NHWC), a ``(*K, I/g, O)`` kernel for ``g = feature_group_count``
+    groups (``g = I`` depthwise), per-channel weight quantization along O.
+    The plain product is ``F.conv1d`` / ``F.conv2d(groups=g)`` in f32 on the
+    padded input; the approx path runs the im2col patches through K3 for
+    ``g = 1`` and through :func:`approx_matmul_oracle`, all groups in one
+    call, otherwise. Every path reads the correlation from
+    :meth:`_conv_plan`, which :class:`QuantConvTranspose` overrides."""
 
     def __init__(self, qc: QuantConfig, in_features: int, features: int, *,
-                 kernel_size: Tuple[int, int] = (3, 3),
-                 strides: Optional[Tuple[int, int]] = None,
+                 kernel_size: Tuple[int, ...] = (3, 3),
+                 strides: Optional[Tuple[int, ...]] = None,
                  padding: Union[str, Sequence[Tuple[int, int]]] = "SAME",
-                 kernel_dilation: Optional[Tuple[int, int]] = None,
+                 kernel_dilation: Optional[Tuple[int, ...]] = None,
                  feature_group_count: int = 1, use_bias: bool = True,
                  generator=None, device=None, **kw):
-        if len(kernel_size) != 2:
-            raise NotImplementedError(f"QuantConv of spatial rank {len(kernel_size)} {_LATER}")
+        n = len(kernel_size)
+        if n not in (1, 2):
+            raise NotImplementedError(f"QuantConv of spatial rank {n} {_LATER}")
         g = feature_group_count
         if in_features % g or features % g:
             raise ValueError(f"{g} groups do not divide {in_features} -> {features} channels")
@@ -542,8 +565,8 @@ class QuantConv(_QuantOpBase):
         self.features = features
         self.groups = g
         self.kernel_size = tuple(kernel_size)
-        self.strides = tuple(strides) if strides is not None else (1, 1)
-        self.dilation = tuple(kernel_dilation) if kernel_dilation is not None else (1, 1)
+        self.strides = tuple(strides) if strides is not None else (1,) * n
+        self.dilation = tuple(kernel_dilation) if kernel_dilation is not None else (1,) * n
         self.padding = padding
         shape = (*self.kernel_size, in_features // g, features)
         fan_in = math.prod(shape[:-1])
@@ -555,6 +578,11 @@ class QuantConv(_QuantOpBase):
     def forward(self, x, qp: QuantPhase = FIXED):
         return self._tail(self._conv_body(x, qp), qp)
 
+    def _conv_plan(self):
+        """(window strides, padding, input dilation) of the correlation
+        every path computes."""
+        return self.strides, self.padding, None
+
     def _conv_int8(self, x, qp: QuantPhase):
         """Integer conv serving of uniform quantizers, or None where the
         layer has no integer codes or its act site is not frozen per-tensor
@@ -562,10 +590,11 @@ class QuantConv(_QuantOpBase):
         ``quantize_acts_affine``, or values) becomes int8 codes on this
         layer's act grid, and ``fastpath.quantized_conv_int8`` sums them
         exactly against the ``w_i8`` codes (or the unpacked ``w_i4``
-        nibbles). Under ``chained`` the result leaves as an ``Affine`` (BN
-        and the clamp fold onto it); its res site, where there is one, folds
-        it too and stays an ``Affine`` ahead of BN, else emits ``Coded``.
-        Returns the pre-BN result."""
+        nibbles), padding and input-dilation holes filled with the zero
+        point's code. Under ``chained`` the result leaves as an ``Affine``
+        (BN and the clamp fold onto it); its res site, where there is one,
+        folds it too and stays an ``Affine`` ahead of BN, else emits
+        ``Coded``. Returns the pre-BN result."""
         if not (qp.packed and qp.quant_w and qp.quant_a and not qp.estimating
                 and self.qc.quantize_input and not self._special_armed()):
             return None
@@ -587,9 +616,11 @@ class QuantConv(_QuantOpBase):
             scale, zp_w, wsum = self.w_i4_scale, self.w_i4_zp, self.w_i4_sum
         else:
             w_codes, scale, zp_w, wsum = self.w_i8, self.w_i8_scale, self.w_i8_zp, self.w_i8_sum
+        strides, padding, input_dilation = self._conv_plan()
         res = fastpath.quantized_conv_int8(
-            codes, w_codes, s[0], scale, cx, wsum, strides=self.strides, padding=self.padding,
-            dilation=self.dilation, groups=self.groups, zp=zp_w, as_affine=qp.chained)
+            codes, w_codes, s[0], scale, cx, wsum, strides=strides, padding=padding,
+            dilation=self.dilation, input_dilation=input_dilation, groups=self.groups,
+            zp=zp_w, as_affine=qp.chained)
         if self.bias is not None:
             res = (dataclasses.replace(res, bias=res.bias + self.bias)
                    if isinstance(res, Affine) else res + self.bias)
@@ -611,6 +642,7 @@ class QuantConv(_QuantOpBase):
         g = self.groups
         in_ch = coded_shape(x)[-1]
         kernel_shape = (*self.kernel_size, in_ch // g, self.features)
+        strides, padding, input_dilation = self._conv_plan()
         pw = self._packed_weights(qp)
         x, a_bias = self._quant_in(x, qp)
         if pw is not None:
@@ -626,20 +658,18 @@ class QuantConv(_QuantOpBase):
         res = None
         if self._plain_first(qp):
             # f32 operands and sums (bf16 grid values upcast exactly)
-            xf, wf = x.to(torch.float32), w.to(torch.float32)
-            pads = _explicit_padding(xf.shape[1:3], self.kernel_size, self.strides,
-                                     self.dilation, self.padding)
-            res = F.conv2d(_pad_nchw(xf.permute(0, 3, 1, 2), pads),
-                           wf.permute(3, 2, 0, 1), stride=self.strides,
-                           dilation=self.dilation, groups=g).permute(0, 2, 3, 1)
+            xf = x.to(torch.float32)
+            pads = _explicit_padding(xf.shape[1:-1], self.kernel_size, strides,
+                                     self.dilation, padding, input_dilation)
+            res = conv_nd(dilate_and_pad(xf, pads, input_dilation), w.to(torch.float32),
+                          strides, self.dilation, g)
             if self.bias is not None:
                 res = res + self.bias
             res = self._res_quant(res, qp)
 
         if self._special_armed():
-            patches = conv_patches(x.to(torch.float32), (*self.kernel_size, in_ch,
-                                                         self.features),
-                                   self.strides, self.padding, self.dilation)
+            patches = conv_patches(x.to(torch.float32), (*self.kernel_size, in_ch, self.features),
+                                   strides, padding, self.dilation, input_dilation=input_dilation)
             lead = patches.shape[:-1]
             m = math.prod(lead)
             k_elems = math.prod(self.kernel_size)
@@ -669,6 +699,70 @@ class QuantConv(_QuantOpBase):
         return res
 
 
+class QuantConv1d(QuantConv):
+    """Quantized 1-D convolution: NWC inputs, a ``(KW, I/g, O)`` kernel;
+    everything else as :class:`QuantConv`."""
+
+    def __init__(self, qc: QuantConfig, in_features: int, features: int, *,
+                 kernel_size: Tuple[int] = (3,), **kw):
+        super().__init__(qc, in_features, features, kernel_size=kernel_size, **kw)
+
+
+def conv_transpose_padding(k: int, s: int, d: int, padding: str):
+    """Per-dim explicit (lo, hi) padding that makes an input-dilated
+    correlation equal ``lax.conv_transpose`` with string padding (XLA's
+    ``_conv_transpose_padding``; ``d`` is the kernel dilation)."""
+    k = d * (k - 1) + 1  # the effective kernel size
+    if padding == "SAME":
+        pad_len = k + s - 2
+        pad_a = k - 1 if s > k - 1 else int(math.ceil(pad_len / 2))
+    elif padding == "VALID":
+        pad_len = k + s - 2 + max(k - s, 0)
+        pad_a = k - 1
+    else:
+        raise ValueError(f"unsupported transpose padding {padding!r}")
+    return (pad_a, pad_len - pad_a)
+
+
+class QuantConvTranspose(QuantConv):
+    """Quantized transposed convolution of spatial rank 1 or 2, computed as
+    the input-dilated correlation it lowers to (unit window strides, input
+    dilation equal to ``strides``, the pads of :func:`conv_transpose_padding`),
+    so every path of :class:`QuantConv` serves it: plain, approx, quantize-
+    after-mult-and-add, fast, packed, chained and int8 (holes filled with
+    the zero point's code). The ``(*K, I, O)`` kernel is applied un-flipped
+    (flax's ``ConvTranspose``); ``models.porting.conv_transpose_kernel``
+    flips torch's. ``padding`` is "SAME"/"VALID" or explicit (lo, hi) pairs
+    on the dilated correlation (torch's ``padding``/``output_padding`` map to
+    ``(d*(k-1)-p, d*(k-1)-p+op)``)."""
+
+    def _conv_plan(self):
+        if isinstance(self.padding, str):
+            pads = tuple(conv_transpose_padding(k, s, d, self.padding)
+                         for k, s, d in zip(self.kernel_size, self.strides, self.dilation))
+        else:
+            pads = tuple(tuple(p) for p in self.padding)
+        return (1,) * len(self.kernel_size), pads, self.strides
+
+
+class QuantConvTranspose1d(QuantConvTranspose):
+    """1-D transposed convolution: NWC inputs, a ``(KW, I, O)`` kernel."""
+
+    def __init__(self, qc: QuantConfig, in_features: int, features: int, *,
+                 kernel_size: Tuple[int] = (3,), **kw):
+        super().__init__(qc, in_features, features, kernel_size=kernel_size, **kw)
+
+
+def _init_bn(module, features: int, epsilon: float, device):
+    """The unfolded BN's state: ``gamma`` / ``beta`` and the f32 running
+    ``mean`` / ``var`` buffers (the flax ``batch_stats`` collection)."""
+    module.bn_epsilon = epsilon
+    module.gamma = nn.Parameter(torch.ones(features, device=device))
+    module.beta = nn.Parameter(torch.zeros(features, device=device))
+    module.register_buffer("mean", torch.zeros(features, device=device))
+    module.register_buffer("var", torch.ones(features, device=device))
+
+
 class BNQuantConv(QuantConv):
     """Quantized conv + *unfolded* batch norm: f32 running stats (``mean``,
     ``var`` buffers, the flax ``batch_stats`` collection) and ``gamma`` /
@@ -682,14 +776,27 @@ class BNQuantConv(QuantConv):
     def __init__(self, qc: QuantConfig, in_features: int, features: int, *,
                  bn_epsilon: float = 1e-5, device=None, **kw):
         super().__init__(qc, in_features, features, device=device, **kw)
-        self.bn_epsilon = bn_epsilon
-        self.gamma = nn.Parameter(torch.ones(features, device=device))
-        self.beta = nn.Parameter(torch.zeros(features, device=device))
-        self.register_buffer("mean", torch.zeros(features, device=device))
-        self.register_buffer("var", torch.ones(features, device=device))
+        _init_bn(self, features, bn_epsilon, device)
 
     def forward(self, x, qp: QuantPhase = FIXED):
         res = _unfolded_bn(self, self._conv_body(x, qp), qp, self.bn_epsilon)
+        return self._tail(res, qp)
+
+
+class BNQuantDense(QuantDense):
+    """Quantized linear + unfolded batch norm (BatchNorm1d's f32 stats),
+    applied after the quantized product (and any res-quant or approx rerun),
+    before the fused activation, as :class:`BNQuantConv` does."""
+
+    bn_follows = True
+
+    def __init__(self, qc: QuantConfig, in_features: int, features: int, *,
+                 bn_epsilon: float = 1e-5, device=None, **kw):
+        super().__init__(qc, in_features, features, device=device, **kw)
+        _init_bn(self, features, bn_epsilon, device)
+
+    def forward(self, x, qp: QuantPhase = FIXED):
+        res = _unfolded_bn(self, self._dense_body(x, qp), qp, self.bn_epsilon)
         return self._tail(res, qp)
 
 
@@ -749,3 +856,28 @@ class QuantLayerNorm(_QuantOpBase):
         if self.bias is not None:
             y = y + self.bias
         return self._tail(y, qp)
+
+
+class QuantizedActWrapper(nn.Module):
+    """A parameter-free op (an average pool, ...) with activation
+    quantization of its output; with ``tie_input_output`` the same site
+    quantizes its input first (the reference's tied activation quantizers),
+    folding a pending ``Affine`` or decoding codes as any act site does."""
+
+    def __init__(self, qc: QuantConfig, op: Callable = lambda x: x, *,
+                 tie_input_output: bool = False, device=None):
+        super().__init__()
+        self.qc = qc
+        self.op = op
+        self.tie_input_output = tie_input_output
+        self.activation_quantizer = QuantSite(qc.act_quantizer(), qc.act_range, device=device)
+
+    def forward(self, x, qp: QuantPhase = FIXED):
+        if self.tie_input_output and qp.quant_a:
+            x = self.activation_quantizer(x, qp)
+        else:
+            x = decoded(x)
+        y = self.op(x)
+        if qp.quant_a:
+            y = self.activation_quantizer(y, qp)
+        return y

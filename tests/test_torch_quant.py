@@ -150,8 +150,10 @@ def test_unported_pieces_raise():
     uniform = tc.QuantizerConfig(method=tc.QMethod.symmetric_uniform)
     with pytest.raises(NotImplementedError):
         tq.apply(uniform, tq.init(uniform), torch.ones(3), grad_scaling=True)
+    # spatial ranks 1 and 2 are ported (the surgery slice); 3 is not
+    assert tlayers.QuantConv(tc.QuantConfig(), 4, 4, kernel_size=(3,)).strides == (1,)
     with pytest.raises(NotImplementedError):
-        tlayers.QuantConv(tc.QuantConfig(), 4, 4, kernel_size=(3,))
+        tlayers.QuantConv(tc.QuantConfig(), 4, 4, kernel_size=(3, 3, 3))
 
 
 @pytest.mark.parametrize("padding,strides,dilation", [

@@ -155,8 +155,13 @@ def test_cuda_flag_without_gpu_raises(monkeypatch):
 
 
 def test_unported_architecture_raises():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tcli.build_model("demo_quantized", tc.QuantConfig(), torch.device("cpu"),
+    """Every architecture of the CLI builds (``demo_quantized`` since the
+    demo was ported); a name outside them raises, as in the JAX CLI."""
+    model, example = tcli.build_model("demo_quantized", tc.QuantConfig(), torch.device("cpu"),
+                                      torch.Generator().manual_seed(0))
+    assert tuple(example.shape) == (1, 10) and tuple(model.fc.kernel.shape) == (10, 10)
+    with pytest.raises(ValueError, match="unknown architecture"):
+        tcli.build_model("bert_quantized", tc.QuantConfig(), torch.device("cpu"),
                          torch.Generator().manual_seed(0))
     assert dataclasses.asdict(TSpec()) == dataclasses.asdict(JSpec())
 
