@@ -49,7 +49,11 @@ Phases, one line each (any failure exits non-zero; no phase is skipped):
    K4 at its dense shapes (16 rows: route A; a 64-row slice: route B) and
    the demo's 8x10x10; the int8 sums of its Conv1d and input-dilated
    ConvTranspose1d (zero point's code 0 and -128 in holes and pads) equal
-   to the CPU's. At the shapes of a batch-8 forward, in the configurations the main
+   to the CPU's; K2 and K4 at BERT-base's shapes at 32 x 128 (the 4096-row
+   products 4096 x 768 x 768, x 3072 and 4096 x 3072 x 768, the 32-row pooler
+   and the 2-column classifier, route B), then timed at every product of
+   that forward beside their plain versions, ``torch.matmul`` and the
+   bound. At the shapes of a batch-8 forward, in the configurations the main
    path launches (K1 at every size it sees, K2 on bf16 x, K4 on bf16 and on
    coded x), checks each GEMM kernel against its plain version again and
    times it, its plain version and (for the GEMMs) cuBLAS, beside the card's
@@ -112,6 +116,20 @@ Phases, one line each (any failure exits non-zero; no phase is skipped):
    ``--native-loader`` (within the PIL pipeline's tolerance); what is
    missing for it is printed. Each run's launches equal the counts its
    shapes imply.
+   Then BERT-base at full width (12 layers, seeded weights): ``python -m
+   fp8_quantization_tpu_torch.nlp`` three ways, on the synthetic task under
+   the published E5M2 flags, with ``--model-dir`` on a seeded state dict
+   under HF ``BertForSequenceClassification``'s names (every tensor read and
+   ported as the file holds it; its load and porting seconds, timed beside
+   the run) and with
+   ``--data-dir`` on a written SST-2 folder and ``vocab.txt``, each
+   launching no kernel; then ``scripts/bench_bert.py``'s serving modes on
+   its ragged 32 x 128 batch: fp32, fixed, fast (K1, K2), FP8 packed (K1,
+   K4), and the int8 configuration's fast, int8 packed and int8 chained
+   (no kernel; ``torch._int_mm``), each with its launches held to the
+   counts the model implies, its ms a batch (CUDA events, median of 5) and
+   its busy share, the int8 modes' top-1 agreement with that fast at least
+   0.95. The BERT phases print their own wall time.
    Then ``ContinuousBatcher`` serving Llama-3-8B at full width (32 layers,
    seeded random weights, calibrated as ``scripts/bench_llama.py`` does) with
    ``fused_sdpa=True``: 4 slots of 2048, greedy, prompts of 17, 100, 256 and
@@ -190,7 +208,15 @@ Phases, one line each (any failure exits non-zero; no phase is skipped):
    MobileNetV2 and ResNet-18 CHAINED against PACKED with the same top-1
    and within 4x the logits' move under a one-ulp change of every BN gamma
    (read in the same run), FP8 MobileNetV2 at batch 16 within 5e-3 with
-   top-1 agreement of at least 0.9 and near ties only where it differs.
+   top-1 agreement of at least 0.9 and near ties only where it differs;
+   a depth-2 full-width BERT at 32 x 128 (ragged): FAST and FP8 PACKED
+   through the kernels (every K2/K4 call to its contract, every K1 call
+   equal) against the plain versions (relative RMS within ``RMS_LIMIT``
+   and midway between the plain path's legal-order and lower-precision
+   readings, same top-1 where the plain margin is decided), FAST against
+   FIXED within ``RMS_LIMIT``, and
+   int8 CHAINED against PACKED within ``rtol = atol = 5e-4`` with the same
+   top-1.
 
 Before the last line it prints one JSON object with each kernel's launches,
 error, times and bound; the last line is
@@ -772,8 +798,6 @@ def time_serving_kernels(fm, dm, dev, worst):
     same bf16 operands (K2, K4; weights pre-decoded for K4) and the bound:
     the larger of the bytes over HBM bandwidth and 2MKN over the bf16
     tensor-core peak."""
-    from fp8_quantization_tpu_torch.numerics.codec import pack_exmy, unpack_exmy
-
     rng = np.random.default_rng(11)
     # frozen per-tensor scalars on the device, as a calibrated site hands them
     args = (torch.tensor(3.0, device=dev),
@@ -789,9 +813,22 @@ def time_serving_kernels(fm, dm, dev, worst):
         phase("kernels", f"K1 {name} {numel} elements x{count}/forward: equal to plain; "
                          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bytes_ms:.4f} ms")
     out = {"K1": _finish({**k1, "library_ms": None})}
+    out.update(time_dense_gemms(fm, dm, dev, worst, dense_shapes(BATCH), coded=True))
+    return out
+
+
+def time_dense_gemms(fm, dm, dev, worst, shapes, coded):
+    """K2 on bf16 x and K4 on bf16 x (and, with ``coded``, on coded x as
+    ``--chained-acts`` runs it) at each ``(name, M, K, N, count)`` of
+    ``shapes``, summed over one forward: held against the plain version once
+    more (``worst`` takes the errors), then timed with their plain versions,
+    cuBLAS on the same bf16 operands (weights pre-decoded for K4) and the
+    bound. Returns {"K2", "K4"[, "K4 coded x"]}."""
+    from fp8_quantization_tpu_torch.numerics.codec import pack_exmy, unpack_exmy
+
     k2, k4, k4c = {}, {}, {}
     act = (4.0, 4, 4, 1)
-    for name, m, k, n, count in dense_shapes(BATCH):
+    for name, m, k, n, count in shapes:
         x, wq, bias = gemm_operands(m, k, n, dev, seed=m + k + n)
         xq = fm.quantize_block_plain(x, *act)
         x16 = xq.to(torch.bfloat16)
@@ -820,6 +857,12 @@ def time_serving_kernels(fm, dm, dev, worst):
         bytes_ms, ops_ms = _bound(2 * m * k + k * n + 4 * n + 4 * m * n, 2 * m * k * n)
         _add(k4, count, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bytes_ms=bytes_ms,
              ops_ms=ops_ms)
+        if not coded:
+            phase("kernels", f"K4 {shape}: route {fm.gemm_route(m)}, within its contract with "
+                             f"plain on bf16 x; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                             f"cuBLAS {lib_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
+                             f"({2 * m * k * n / ms / 1e9:.4g} TFLOP/s)")
+            continue
         # coded x with its packing bias on the device, as CodedFP carries it
         x_bias = torch.tensor(4, dtype=torch.int32, device=dev)
         xc = pack_exmy(xq, 3, 4, x_bias, clip_of=True)
@@ -835,7 +878,9 @@ def time_serving_kernels(fm, dm, dev, worst):
                          f"plain on bf16 and on coded x; kernel {ms:.4f} ms (coded x {coded_ms:.4f} ms), plain "
                          f"{plain_ms:.4f} ms (coded x {coded_plain_ms:.4f} ms), cuBLAS "
                          f"{lib_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms")
-    out["K2"], out["K4"], out["K4 coded x"] = _finish(k2), _finish(k4), _finish(k4c)
+    out = {"K2": _finish(k2), "K4": _finish(k4)}
+    if coded:
+        out["K4 coded x"] = _finish(k4c)
     return out
 
 
@@ -1150,16 +1195,23 @@ def rel_rms(ours, plain):
     return float(((ours - plain) ** 2).mean().sqrt() / plain.std())
 
 
+def plain_path_readings(forward, plain_out):
+    """The relative RMS of the same forward (``forward()``) through the
+    plain path in each of ``GEMM_SUM_ORDERS`` against the plain output
+    ``plain_out``: (legal order, lower-precision control)."""
+    readings = []
+    for order in GEMM_SUM_ORDERS:
+        with plain_path(order):
+            readings.append(rel_rms(forward(), plain_out))
+    return tuple(readings)
+
+
 def rms_verdict(rms, forward, plain_out):
     """Holds a kernel run's relative RMS ``rms`` against the plain output
     ``plain_out`` to ``RMS_LIMIT``, after reading the same forward
     (``forward()``) through the plain path in each of ``GEMM_SUM_ORDERS``.
     Returns (ok, a line saying so)."""
-    readings = []
-    for order in GEMM_SUM_ORDERS:
-        with plain_path(order):
-            readings.append(rel_rms(forward(), plain_out))
-    legal, control = readings
+    legal, control = plain_path_readings(forward, plain_out)
     ok = rms <= RMS_LIMIT and legal < RMS_LIMIT < control
     return ok, (f"relative RMS {rms:.4g} (limit {RMS_LIMIT}; plain path with the GEMM sums in "
                 f"another legal order {legal:.4g}, in the lower-precision control "
@@ -1598,6 +1650,7 @@ def profile_decode(name, model, spec, qp, dev, steps=3, batcher=None, ops=()):
     the heaviest kernels and the device ms a step of each PyTorch op in
     ``ops`` (the kernels it launched). The profiler's own host cost
     inflates the wall time. Returns {op: device ms per step}."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from fp8_quantization_tpu_torch.models.serving import ContinuousBatcher
@@ -1623,7 +1676,9 @@ def profile_decode(name, model, spec, qp, dev, steps=3, batcher=None, ops=()):
         return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
 
     averages = prof.key_averages()
-    kernels = sorted((e for e in averages if device_us(e) > 0), key=device_us, reverse=True)
+    # the device's own events: a host op's device time repeats its kernels'
+    kernels = sorted((e for e in averages if e.device_type == DeviceType.CUDA
+                      and device_us(e) > 0), key=device_us, reverse=True)
     busy_us = sum(device_us(e) for e in kernels)
     launches = sum(e.count for e in kernels)
     top = "; ".join(f"{e.key[:40]} {device_us(e) / 1e3 / steps:.2f} ms x{e.count // steps}"
@@ -4192,6 +4247,394 @@ def run_weights_and_surgery(cli, counters, dev):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# BERT-base: the nlp entry point (GLUE evaluation) and BERT's serving modes
+# (scripts/bench_bert.py) at full width
+BERT_BATCH, BERT_SEQ = 32, 128
+BERT_DEPTH2_BATCH = 32
+BERT_TIMED = 5
+BERT_NLP_EVALS = 2
+# int8 dense products go through fastpath.quantized_matmul_int8 (torch._int_mm
+# on the card), which has no launch counter of its own
+BERT_COUNTED = (("layers", "quantized_matmul_int8", "int8 dense"),)
+
+
+def bert_spec(depth=None):
+    from fp8_quantization_tpu_torch.models.bert import BERT_BASE
+
+    return BERT_BASE if depth is None else dataclasses.replace(BERT_BASE, num_layers=depth)
+
+
+# BERT-base's dense products at batch B x T tokens: (name, M, K, N, per forward)
+def bert_dense_shapes(batch=BERT_BATCH, seq=BERT_SEQ):
+    m = batch * seq
+    return [("qkv_attn_out", m, 768, 768, 4 * 12),
+            ("intermediate", m, 768, 3072, 12),
+            ("output", m, 3072, 768, 12),
+            ("pooler", batch, 768, 768, 1),
+            ("classifier", batch, 768, 2, 1)]
+
+
+# phase 3's K2/K4 checks at BERT's shapes: the 4096-row products, the 32-row
+# pooler and the 2-column classifier (route B, N * 2 bytes off 16)
+BERT_GEMM_SHAPES = [(m, k, n) for _, m, k, n, _ in bert_dense_shapes()]
+
+
+def bert_per_forward(spec):
+    """(dense products, K1 launches) of one FAST or FP8 PACKED forward: K1
+    at every dense layer's input and result site, every LayerNorm's input
+    site (two a block and the embeddings') and every block's context and
+    intermediate sites."""
+    dense = 6 * spec.num_layers + 2
+    return dense, 2 * dense + (2 * spec.num_layers + 1) + 2 * spec.num_layers
+
+
+def bert_expected(spec, mode):
+    """The launches one forward of ``mode`` implies: none in fp32, fixed
+    and the int8 configuration's fast; K1 and K2 under FAST; K1 and K4
+    under FP8 PACKED; int8 packed and chained no kernel, every dense
+    product an int8 one."""
+    from fp8_quantization_tpu_torch.ops.cuda import KERNELS
+
+    dense, k1 = bert_per_forward(spec)
+    want = {name: 0 for name in KERNELS}
+    want["int8 dense"] = 0
+    if mode in ("fast", "fp8 packed"):
+        want["K1"] = k1
+        want["K2" if mode == "fast" else "K4"] = dense
+    elif mode in ("int8 packed", "int8 chained"):
+        want["int8 dense"] = dense
+    return want
+
+
+def forward_ms(fn, reps=BERT_TIMED):
+    """Median milliseconds of ``fn`` over ``reps`` runs, each between two
+    CUDA events, after one warm-up run: the time a batch takes, host
+    launches included."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def busy_share(fn):
+    """``torch.profiler`` over one run of ``fn``: (wall ms, device ms,
+    kernel launches). The profiler's own host cost inflates the wall, so
+    device / wall understates the busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # the device's own events (kernels, copies, memsets): a host op's
+    # device time repeats its kernels' time
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_us = sum(getattr(e, "self_device_time_total", None)
+                    or getattr(e, "self_cuda_time_total", 0) for e in kernels)
+    return 1e3 * wall, device_us / 1e3, sum(e.count for e in kernels)
+
+
+@contextlib.contextmanager
+def captured_nlp(record):
+    """Records, for every ``nlp`` run inside, its model (``record["model"]``)
+    and the synced seconds of its ESTIMATE forwards, the init forward among
+    them (``record["calib_s"]``), and of its FIXED ones
+    (``record["eval_s"]``)."""
+    from fp8_quantization_tpu_torch import nlp
+
+    forward = nlp.forward
+    record.update(calib_s=0.0, eval_s=0.0)
+
+    def call(model, ids, mask=None, types=None, qp=nlp.FIXED):
+        record["model"] = model
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = forward(model, ids, mask, types, qp)
+        torch.cuda.synchronize()
+        record["calib_s" if qp.estimating else "eval_s"] += time.perf_counter() - t0
+        return out
+
+    nlp.forward = call
+    try:
+        yield record
+    finally:
+        nlp.forward = forward
+
+
+def run_nlp(counters, name, argv):
+    """``python -m fp8_quantization_tpu_torch.nlp`` with ``argv``, every
+    count zeroed just before it: the published flags launch no kernel (the
+    calibration and the FIXED evaluation run the plain quantizers and f32
+    products). Returns (run record, counts)."""
+    from fp8_quantization_tpu_torch import nlp
+
+    zero_counts(counters)
+    with counted_calls({}, BERT_COUNTED) as calls, captured_nlp({}) as rec:
+        t0 = time.perf_counter()
+        metrics = nlp.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = {**read_counts(counters), **calls}
+    device = next(rec["model"].parameters()).device
+    ok = (not any(counts.values()) and all(0.0 <= v <= 1.0 for v in metrics.values())
+          and device.type == "cuda")
+    phase("main", f"nlp {name} on {device}: {metrics}, ESTIMATE forwards (the init one "
+                  f"included) {rec['calib_s']:.2f} s, FIXED eval {rec['eval_s']:.2f} s, wall "
+                  f"{wall:.2f} s ({card_power()}), launches {counts}, ok={ok}")
+    if not ok:
+        raise SystemExit(f"nlp {name}: launched a kernel, left the card or gave bad metrics")
+    return {**rec, "metrics": metrics, "wall_s": wall}, counts
+
+
+def write_glue_folder(root, seed=10):
+    """An SST-2-format folder (``dev.tsv``, ``train.tsv``, with headers) and
+    a ``vocab.txt``: the synthetic task's sentences and vocabulary."""
+    import os
+
+    from fp8_quantization_tpu_torch.eval import glue
+
+    os.makedirs(root, exist_ok=True)
+    _, examples, _ = glue.synthetic_task(num_examples=40, seed=seed)
+    for name, rows in (("dev.tsv", examples[:32]), ("train.tsv", examples[32:])):
+        with open(os.path.join(root, name), "w", encoding="utf-8") as f:
+            f.write("sentence\tlabel\n")
+            f.writelines(f"{ex.text_a}\t{int(ex.label)}\n" for ex in rows)
+    with open(os.path.join(root, "vocab.txt"), "w", encoding="utf-8") as f:
+        f.write("\n".join(glue.synthetic_vocab()) + "\n")
+    return root
+
+
+def run_nlp_runs(counters, tmp):
+    """The three ``nlp`` runs at full BERT-base width on the card: the
+    synthetic task under the published E5M2 flags; ``--model-dir`` on a
+    seeded state dict under HF ``BertForSequenceClassification``'s names
+    that this function writes (read and ported here as well, timed, to
+    count the tensors the port leaves unread; every ported entry of the
+    run's model equal to the file's after its layout change); ``--data-dir``
+    on a written SST-2 folder. Returns {run: record}."""
+    import os
+
+    from fp8_quantization_tpu_torch.models import porting
+
+    flags = ["--max-eval-batches", str(BERT_NLP_EVALS)]
+    out = {}
+    rec, counts = run_nlp(counters, "synthetic task, E5M2", flags)
+    del rec["model"]
+    out["synthetic"] = {**rec, "counts": counts}
+    path = os.path.join(tmp, "bert_sst2.bin")
+    t0 = time.perf_counter()
+    state = porting.seeded_source_state("bert_quantized", torch.Generator().manual_seed(7))
+    torch.save(state, path)
+    t1 = time.perf_counter()
+    loaded = torch.load(path, map_location="cpu", weights_only=True)
+    t2 = time.perf_counter()
+    used = porting.UsedKeys(loaded)
+    layers = bert_spec().num_layers
+    ported = porting.port_bert(used, layers)
+    t3 = time.perf_counter()
+    unread = porting.unported_keys(used)
+    rec, counts = run_nlp(counters, "--model-dir", flags + ["--model-dir", path])
+    model_state = rec.pop("model").state_dict()
+    equal = all(torch.equal(model_state[k].cpu(), v) for k, v in ported.items())
+    # three embeddings and their LayerNorm, 16 entries a layer, pooler, classifier
+    ok = equal and unread == () and len(ported) == 5 + 16 * layers + 4
+    phase("main", f"nlp --model-dir {os.path.basename(path)} ({os.path.getsize(path) / 2**20:.1f} "
+                  f"MiB, {len(state)} tensors): write {t1 - t0:.2f} s, torch.load "
+                  f"{t2 - t1:.2f} s, porting {t3 - t2:.3f} s; unread tensors {unread}; "
+                  f"{len(ported)} ported entries equal to the file's after the layout change: "
+                  f"{equal}; ok={ok}")
+    if not ok:
+        raise SystemExit("nlp --model-dir: the file did not load as ported")
+    out["--model-dir"] = {**rec, "counts": counts, "write_s": t1 - t0, "load_s": t2 - t1,
+                          "port_s": t3 - t2}
+    del state, loaded, used, model_state, ported
+    os.remove(path)
+    folder = write_glue_folder(os.path.join(tmp, "sst-2"))
+    rec, counts = run_nlp(counters, "--data-dir", ["--data-dir", folder, "--task", "sst-2"])
+    del rec["model"]
+    out["--data-dir"] = {**rec, "counts": counts}
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_bert_serving(dev, counters):
+    """``scripts/bench_bert.py``'s modes at full BERT-base width on its
+    ragged batch (32 x 128, the second half masked past 60%): the FP8
+    family (``nlp.fp8_modes``: fp32, fixed, fast, FP8 packed) and the int8
+    family (``nlp.int8_modes``: its FAST, int8 packed, int8 chained), each
+    model built, initialized on the first row and calibrated on two. Per
+    mode: launches of one forward (counts zeroed just before it) held to
+    :func:`bert_expected`, ms a batch (CUDA events, median of
+    ``BERT_TIMED``) and the profiled busy share; the top-1 agreement of the
+    int8 modes with the int8 configuration's FAST, held to the JAX
+    package's 0.95 (``tests/test_glue_serving.py``). Returns {mode: record}."""
+    from fp8_quantization_tpu_torch import nlp
+
+    spec = bert_spec()
+    ids, mask = nlp.ragged_batch(spec, BERT_BATCH, BERT_SEQ)
+    ids_t, mask_t = torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev)
+    out = {}
+    for qc, modes in ((nlp.fp8_serving_qc(), nlp.fp8_modes),
+                      (nlp.int8_serving_qc(), nlp.int8_modes)):
+        model = nlp.serving_model(qc, spec, ids, mask, dev, torch.Generator().manual_seed(0))
+        for mode, qp in modes(model, qc, ids, mask):
+            def run(qp=qp):
+                with torch.no_grad():
+                    return model(ids_t, mask_t, None, qp=qp)
+
+            zero_counts(counters)
+            with counted_calls({}, BERT_COUNTED) as calls:
+                logits = run().float()
+                torch.cuda.synchronize()
+            counts = {**read_counts(counters), **calls}
+            want = bert_expected(spec, mode)
+            ms = forward_ms(run)
+            wall_ms, device_ms, launches = busy_share(run)
+            ok = counts == want and bool(torch.isfinite(logits).all())
+            phase("main", f"BERT-base {mode} at {BERT_BATCH}x{BERT_SEQ}: {ms:.2f} ms a batch "
+                          f"(median of {BERT_TIMED}; {card_power()}), profiled {wall_ms:.2f} ms "
+                          f"wall / {device_ms:.2f} device ms (busy share "
+                          f"{device_ms / wall_ms:.3f}, {launches} kernel launches), launches "
+                          f"{counts} (expected {want}), ok={ok}")
+            if not ok:
+                raise SystemExit(f"BERT {mode}: wrong launch counts or non-finite logits")
+            out[mode] = {"counts": counts, "ms": ms, "busy": device_ms / wall_ms,
+                         "device_ms": device_ms, "top1": logits.argmax(-1).cpu()}
+        del model
+        torch.cuda.empty_cache()
+    for mode in ("int8 packed", "int8 chained"):
+        agree = float((out[mode]["top1"] == out["int8 fast"]["top1"]).float().mean())
+        out[mode]["agreement"] = agree
+        phase("main", f"BERT-base {mode}: top-1 agreement with the int8 configuration's FAST "
+                      f"{agree:.4f} over {BERT_BATCH} sequences (at least 0.95)")
+        if agree < 0.95:
+            raise SystemExit(f"BERT {mode}: top-1 agreement with FAST below 0.95")
+    return out
+
+
+def check_bert_models(dev, counters):
+    """Phase 5: a depth-2 full-width BERT at 32 x 128 (ragged). FP8: FAST
+    and FP8 PACKED through the kernels, every K2/K4 call held to its
+    contract and every K1 call to equality on its own inputs, against the
+    same model through the plain versions (no launch from the plain run).
+    Route B's tensor cores sum in their own order, and a requant output at a
+    rounding midpoint lands one grid step away and carries on; with two
+    classes one such step in the logits (0.0625 on the classifier's E3M4
+    grid near 1) is a relative RMS near 0.017 over 16 logits and 0.009
+    over this batch's 64, so ``compare_logits``'s 1e-2 does not fit, and
+    the plain path's readings (``plain_path_readings``) both fall below
+    ``RMS_LIMIT``: the lower-precision control reads ~0.03 (the logits
+    move in whole grid steps). The logits' relative RMS is held to at most
+    ``RMS_LIMIT`` and the midpoint of the two readings taken in this run,
+    the legal-order one below the control, and to the same top-1 wherever
+    the plain margin exceeds twice max|kernel - plain|. Then FAST through
+    the kernels against FIXED within ``RMS_LIMIT``. int8: CHAINED against
+    PACKED with the same top-1 and within the JAX package's ``rtol = atol =
+    5e-4`` (``tests/test_conv_serving.py``)."""
+    from fp8_quantization_tpu_torch import nlp
+
+    spec = bert_spec(2)
+    ids, mask = nlp.ragged_batch(spec, BERT_DEPTH2_BATCH, BERT_SEQ, seed=3)
+    ids_t, mask_t = torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev)
+    qc = nlp.fp8_serving_qc()
+    model = nlp.serving_model(qc, spec, ids, mask, dev, torch.Generator().manual_seed(1))
+    logits = {}
+    for mode, qp in nlp.fp8_modes(model, qc, ids, mask):
+        def forward(qp=qp):
+            with torch.no_grad():
+                return model(ids_t, mask_t, None, qp=qp).float()
+
+        if mode in ("fp32", "fixed"):
+            logits[mode] = forward()
+            continue
+        zero_counts(counters)
+        with verified_gemms({}) as record, verified_attention({}) as held:
+            ours = forward()
+        counts = read_counts(counters)
+        with plain_kernels():
+            plain = forward()
+        dense, k1 = bert_per_forward(spec)
+        gemm = "K2" if mode == "fast" else "K4"
+        diff = float((ours - plain).abs().max())
+        rms = rel_rms(ours, plain)
+        legal, control = plain_path_readings(forward, plain)
+        limit = min(RMS_LIMIT, (legal + control) / 2)
+        rms_ok = rms <= limit and legal < control
+        rms_line = (f"relative RMS {rms:.4g} (limit {limit:.4g}: at most {RMS_LIMIT} and "
+                    f"midway between the plain path with the GEMM sums in another legal order "
+                    f"{legal:.4g} and in the lower-precision control {control:.4g})")
+        top2 = torch.sort(plain, dim=-1).values[:, -2:]
+        decided = (top2[:, 1] - top2[:, 0]) > 2 * diff
+        same = bool((ours.argmax(-1) == plain.argmax(-1))[decided].all())
+        ok = (counts[gemm] == dense and counts["K1"] == k1 and held["K1"] == k1
+              and record["calls"] == dense and read_counts(counters) == counts and rms_ok
+              and same and bool(torch.isfinite(ours).all()))
+        phase("model", f"BERT {mode}, width {spec.hidden_size}, depth {spec.num_layers}, batch "
+                       f"{BERT_DEPTH2_BATCH}: {record['calls']} {gemm} calls (routes "
+                       f"{sorted(record['routes'])}) each within its contract with plain on its "
+                       f"own inputs (min equal fraction {record['min_equal']:.4f}), {held['K1']} "
+                       f"K1 calls equal; logits max|kernel - plain| {diff:.3g} (max|logit| "
+                       f"{float(plain.abs().max()):.3g}), {rms_line}, same top-1 on the "
+                       f"{int(decided.sum())} of {BERT_DEPTH2_BATCH} rows whose plain margin "
+                       f"exceeds 2 max|d|: {same}, launches {counts}, ok={ok}")
+        if not ok:
+            raise SystemExit(f"BERT depth 2 {mode}: the kernels and their plain versions disagree")
+        logits[mode] = ours
+    rms = rel_rms(logits["fast"], logits["fixed"])
+    ok = rms <= RMS_LIMIT
+    agree = float((logits["fast"].argmax(-1) == logits["fixed"].argmax(-1)).float().mean())
+    phase("model", f"BERT FAST through the kernels against FIXED, depth 2, batch "
+                   f"{BERT_DEPTH2_BATCH}: relative RMS {rms:.4g} (limit {RMS_LIMIT}), top-1 "
+                   f"agreement {agree:.3f}, ok={ok}")
+    if not ok:
+        raise SystemExit("BERT FAST and FIXED disagree beyond RMS_LIMIT")
+    del model
+    qc = nlp.int8_serving_qc()
+    model = nlp.serving_model(qc, spec, ids, mask, dev, torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        served = {mode: model(ids_t, mask_t, None, qp=qp).float()
+                  for mode, qp in nlp.int8_modes(model, qc, ids, mask)}
+    packed, chained = served["int8 packed"], served["int8 chained"]
+    diff = float((chained - packed).abs().max())
+    close = bool(torch.all((chained - packed).abs() <= 5e-4 + 5e-4 * packed.abs()))
+    same = bool((chained.argmax(-1) == packed.argmax(-1)).all())
+    ok = close and same and bool(torch.isfinite(chained).all())
+    phase("model", f"BERT int8 CHAINED against PACKED, depth 2, batch {BERT_DEPTH2_BATCH}: "
+                   f"max|d| {diff:.3g} (bit-equal {torch.equal(chained, packed)}; max|logit| "
+                   f"{float(packed.abs().max()):.3g}), same top-1 {same}, ok={ok}")
+    if not ok:
+        raise SystemExit("BERT int8 CHAINED and PACKED disagree")
+    del model
+    torch.cuda.empty_cache()
+
+
+def run_bert(dev, counters):
+    """Phase 4's BERT runs: ``nlp`` three ways, then the serving modes.
+    Returns {"nlp", "serving", "seconds"}."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bert_")
+    try:
+        nlp_runs = run_nlp_runs(counters, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    serving = run_bert_serving(dev, counters)
+    return {"nlp": nlp_runs, "serving": serving, "seconds": time.perf_counter() - t0}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -4269,6 +4712,12 @@ def main() -> int:
         gemm_err[key] = max(gemm_err[key], surgery_gemm_err[key])
     check_int8_transpose(dev)
     surgery_kernels_s = time.perf_counter() - t_surgery
+    # BERT-base's shapes: the 4096-row products, the pooler, the 2-wide classifier
+    t_bert = time.perf_counter()
+    bert_gemm_err = check_gemms(fm, dm, dev, BERT_GEMM_SHAPES)
+    for key in bert_gemm_err:
+        gemm_err[key] = max(gemm_err[key], bert_gemm_err[key])
+    bert_s = time.perf_counter() - t_bert
 
     # 4. the main path: each run with every launch count zeroed just before
     counters = KERNELS
@@ -4308,10 +4757,17 @@ def main() -> int:
     cnn_s = time.perf_counter() - t_cnn
     # the demo, the surgery model, --model-dir, checkpoints and --images-dir
     surgery_io = run_weights_and_surgery(cli, counters, dev)
+    # BERT-base: the nlp entry point three ways and the serving modes
+    bert = run_bert(dev, counters)
+    bert_s += bert["seconds"]
 
     # K1, K2 and K4 checked and timed at the shapes of one batch-8 forward
     times = time_serving_kernels(fm, dm, dev, gemm_err)
     times["K3"] = k3_times
+    # K2 and K4 at the shapes of one BERT-base forward at 32 x 128
+    t0 = time.perf_counter()
+    bert_gemms = time_dense_gemms(fm, dm, dev, gemm_err, bert_dense_shapes(), coded=False)
+    bert_s += time.perf_counter() - t0
 
     # Llama-3-8B served by ContinuousBatcher; K7 and K6 checked and timed at
     # the shapes each run gave them
@@ -4337,6 +4793,11 @@ def main() -> int:
     check_cnn_models(cli, dev, counters)
     check_cnn_serving(cli, dev, counters)
     cnn_s += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    check_bert_models(dev, counters)
+    bert_s += time.perf_counter() - t0
+    phase("bert", f"the BERT-base kernel checks, timings, runs and model checks took "
+                  f"{bert_s:.1f} s in all")
     check_llama_model(dev, counters)
     check_llama_uniform(dev, counters)
 
@@ -4413,6 +4874,16 @@ def main() -> int:
         **({"per_surgery_forward": {f: k3_surgery[f] for f in ("launches", "ms", "plain_ms",
                                                                 "bound_ms", "bound_by")}}
            if key == "K3" else {}),
+        # the BERT-base runs of phase 4 (launches per nlp run and per serving
+        # forward at 32 x 128) and K2/K4 per BERT-base forward at that batch
+        **({"bert_launches": {
+            **{f"nlp {run}": r["counts"][key] for run, r in bert["nlp"].items()},
+            **{f"serving {mode}": r["counts"][key] for mode, r in bert["serving"].items()}}}
+           if key in ("K1", "K2", "K4") else {}),
+        **({"per_bert_forward": {"launches": bert_per_forward(bert_spec())[0],
+                                 **{f: bert_gemms[key][f] for f in (
+                                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}}
+           if key in bert_gemms else {}),
     } for name, key, src, tpu, launches, err in kernels]}
     step = "; ".join([f"{key} {t['step']['ms']:.3f} ms (bound {t['step']['bound_ms']:.3f}, "
                       f"torch.matmul {t['step']['library_ms']:.3f})"
@@ -4477,6 +4948,15 @@ def main() -> int:
                   + f"; the weights, images, demo and surgery checks {surgery_kernels_s:.1f} s "
                   "and runs "
                   f"{surgery_io['seconds']:.1f} s"
+                  + "; BERT-base at 32x128: " + ", ".join(
+                      f"{mode} {r['ms']:.2f} ms a batch (busy {r['busy']:.3f})"
+                      for mode, r in bert["serving"].items())
+                  + "; K2 / K4 per BERT-base forward " + ", ".join(
+                      f"{key} {t['ms']:.3f} ms (bound {t['bound_ms']:.3f}, torch.matmul "
+                      f"{t['library_ms']:.3f})" for key, t in bert_gemms.items())
+                  + f"; nlp --model-dir load {bert['nlp']['--model-dir']['load_s']:.2f} s, port "
+                  f"{bert['nlp']['--model-dir']['port_s']:.3f} s; the BERT checks and runs "
+                  f"{bert_s:.1f} s"
                   + f"; {served}; per batch-{BATCH} forward (K1-K4) or serving run (K5, K6, "
                   "K7): "
                   f"{per_forward}; K7 per batch-{BATCH} ViT-B/16 forward {k7_vit['ms']:.4f} ms "

@@ -1,8 +1,8 @@
 """Torch-checkpoint porting: FP32 state dicts of the source models -> the
 port's ``state_dict`` (port of ``models/porting.py``).
 
-The source's tensors (torchvision / the reference's CNNs, HF ViT and Llama
-names) map onto the quantized model's parameters and BN buffers. BN folding
+The source's tensors (torchvision / the reference's CNNs, HF ViT, BERT and
+Llama names) map onto the quantized model's parameters and BN buffers. BN folding
 follows ``fold_bn``: a conv+BN window becomes one ``BNQuantConv`` keeping
 the f32 stats, and a conv bias ahead of BN folds into ``running_mean``.
 
@@ -179,6 +179,27 @@ def port_vit(state: Mapping, num_layers: int = 12) -> Ported:
     return out
 
 
+def port_bert(state: Mapping, num_layers: int = 12) -> Ported:
+    """An HF ``BertForSequenceClassification`` onto ``QuantizedBert``."""
+    out = {f"{name}_embeddings": _f32(state[f"bert.embeddings.{name}_embeddings.weight"])
+           for name in ("word", "position", "token_type")}
+    out.update(_layernorm(state, "bert.embeddings.LayerNorm", "embeddings_layernorm"))
+    out.update(_dense(state, "bert.pooler.dense", "pooler"))
+    out.update(_dense(state, "classifier", "classifier"))
+    for i in range(num_layers):
+        src, dst = f"bert.encoder.layer.{i}", f"layer_{i}"
+        for name in ("query", "key", "value"):
+            out.update(_dense(state, f"{src}.attention.self.{name}",
+                              f"{dst}.attention.{name}"))
+        out.update(_dense(state, f"{src}.attention.output.dense", f"{dst}.attention_output"))
+        out.update(_layernorm(state, f"{src}.attention.output.LayerNorm",
+                              f"{dst}.attention_layernorm"))
+        out.update(_dense(state, f"{src}.intermediate.dense", f"{dst}.intermediate"))
+        out.update(_dense(state, f"{src}.output.dense", f"{dst}.output"))
+        out.update(_layernorm(state, f"{src}.output.LayerNorm", f"{dst}.output_layernorm"))
+    return out
+
+
 def port_llama(state: Mapping, num_layers: int = 32) -> Ported:
     """An HF ``LlamaForCausalLM`` onto ``QuantizedLlama``."""
     out = {"embed": _f32(state["model.embed_tokens.weight"]),
@@ -197,8 +218,9 @@ def port_llama(state: Mapping, num_layers: int = 32) -> Ported:
 
 def port_architecture(arch: str, state: Mapping, model=None) -> Ported:
     """Port ``state`` for a ``validate-quantized`` architecture (``_approx``
-    twins alike), as the CLI's ``load_weights`` dispatches; ``model`` (the
-    built model) gives a depth-cut ViT its number of layers."""
+    twins alike), as the CLI's ``load_weights`` dispatches, or for
+    ``bert_quantized`` (``nlp``'s ``--model-dir``); ``model`` (the built
+    model) gives a depth-cut ViT or BERT its number of layers."""
     arch = arch.replace("_approx", "")
     if arch == "mobilenet_v2_quantized":
         return port_mobilenet_v2(state)
@@ -207,6 +229,9 @@ def port_architecture(arch: str, state: Mapping, model=None) -> Ported:
     if arch == "vit_quantized":
         spec = getattr(model, "spec", None)
         return port_vit(state, spec.num_layers if spec is not None else 12)
+    if arch == "bert_quantized":
+        spec = getattr(model, "spec", None)
+        return port_bert(state, spec.num_layers if spec is not None else 12)
     raise ValueError(f"no torch porting rule for {arch}")
 
 
@@ -246,7 +271,8 @@ def seeded_source_state(arch: str, generator: torch.Generator, *, spec=None,
     """A seeded FP32 state dict under the source's own names and shapes, for
     checks that need a file to port and have no pretrained one: HF
     ``ViTForImageClassification`` (``vit_quantized``, ``spec`` a
-    ``ViTSpec``), torchvision ResNet-18/50 (with the BN layers'
+    ``ViTSpec``), HF ``BertForSequenceClassification`` (``bert_quantized``,
+    ``spec`` a ``BertSpec``), torchvision ResNet-18/50 (with the BN layers'
     ``num_batches_tracked``) and the reference's MobileNetV2. Kernels are
     lecun-scaled normals, BN stats near (0, 1); ``conv_bias`` adds a bias to
     every conv ahead of a BN (the fold into ``running_mean``)."""
@@ -285,6 +311,33 @@ def seeded_source_state(arch: str, generator: torch.Generator, *, spec=None,
                 out[f"{src}.{ln}.bias"] = 0.1 * torch.randn(h, generator=gen)
         out["vit.layernorm.weight"] = 1.0 + 0.1 * torch.randn(h, generator=gen)
         out["vit.layernorm.bias"] = 0.1 * torch.randn(h, generator=gen)
+        dense("classifier", s.num_classes, h)
+        return out
+    if base == "bert_quantized":
+        from .bert import BERT_BASE
+
+        s = spec or BERT_BASE
+        h = s.hidden_size
+
+        def layernorm(name):
+            out[f"{name}.weight"] = 1.0 + 0.1 * torch.randn(h, generator=gen)
+            out[f"{name}.bias"] = 0.1 * torch.randn(h, generator=gen)
+
+        for name, rows in (("word", s.vocab_size), ("position", s.max_position_embeddings),
+                           ("token_type", s.type_vocab_size)):
+            out[f"bert.embeddings.{name}_embeddings.weight"] = 0.02 * torch.randn(
+                rows, h, generator=gen)
+        layernorm("bert.embeddings.LayerNorm")
+        for i in range(s.num_layers):
+            src = f"bert.encoder.layer.{i}"
+            for name in ("query", "key", "value"):
+                dense(f"{src}.attention.self.{name}", h, h)
+            dense(f"{src}.attention.output.dense", h, h)
+            layernorm(f"{src}.attention.output.LayerNorm")
+            dense(f"{src}.intermediate.dense", s.mlp_dim, h)
+            dense(f"{src}.output.dense", h, s.mlp_dim)
+            layernorm(f"{src}.output.LayerNorm")
+        dense("bert.pooler.dense", h, h)
         dense("classifier", s.num_classes, h)
         return out
     if base == "mobilenet_v2_quantized":
