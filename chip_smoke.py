@@ -130,6 +130,18 @@ Phases, one line each (any failure exits non-zero; no phase is skipped):
    counts the model implies, its ms a batch (CUDA events, median of 5) and
    its busy share, the int8 modes' top-1 agreement with that fast at least
    0.95. The BERT phases print their own wall time.
+   Then ``train-qat`` on MobileNetV2 at full width (224, 1000 classes),
+   batch 32, synthetic data, 2 epochs of 4 steps: (a) the published flags
+   with ``--fp8-learn-maxval --sep-quant-optimizer`` and (b) 4-bit
+   symmetric per-channel weights, 8-bit acts, ``--grad-scaling`` and the
+   oscillation flags (``OSC_FLAGS``); each launches no kernel, has a finite
+   loss every step, saves a ``latest`` checkpoint that restores to equal
+   logits, and (a) moves trainable ``maxval`` entries, (b) freezes weights,
+   every frozen one keeping its code after every step; then the timing
+   ladder after ``scripts/bench_qat.py`` at (a)'s shapes: plain f32
+   training, fake-quant training with frozen ranges and QAT with learnable
+   ranges, each its ms a step (CUDA events, median of 5), device launches
+   and busy share.
    Then ``ContinuousBatcher`` serving Llama-3-8B at full width (32 layers,
    seeded random weights, calibrated as ``scripts/bench_llama.py`` does) with
    ``fused_sdpa=True``: 4 slots of 2048, greedy, prompts of 17, 100, 256 and
@@ -216,7 +228,10 @@ Phases, one line each (any failure exits non-zero; no phase is skipped):
    readings, same top-1 where the plain margin is decided), FAST against
    FIXED within ``RMS_LIMIT``, and
    int8 CHAINED against PACKED within ``rtol = atol = 5e-4`` with the same
-   top-1.
+   top-1. (Run inside phase 4's QAT phase:) one QAT step of MobileNetV2 at
+   full width cut to one block a stage, batch 2, on the card and on the CPU
+   from one calibrated state: the relative RMS of the weight and range
+   updates within ``RMS_LIMIT``.
 
 Before the last line it prints one JSON object with each kernel's launches,
 error, times and bound; the last line is
@@ -4635,6 +4650,293 @@ def run_bert(dev, counters):
     return {"nlp": nlp_runs, "serving": serving, "seconds": time.perf_counter() - t0}
 
 
+# train-qat: MobileNetV2 at full width (224x224, 1000 classes),
+# batch 32, 2 epochs of 4 steps; the timing ladder takes QAT_RUNG_STEPS
+# steps a rung after one warm-up step
+QAT_BATCH = 32
+QAT_EPOCHS, QAT_STEPS = 2, 4
+QAT_RUNG_STEPS = 5
+# (b): 4-bit symmetric per-channel weights, 8-bit acts, LSQ scaling; a
+# weight freezes at its first direction reversal (EMA momentum 0.5 puts its
+# frequency at 0.5 > 0.2), and the rate makes codes flip within the run
+OSC_FLAGS = ["--n-bits", "4", "--n-bits-act", "8", "--grad-scaling", "--learning-rate",
+             "0.1", "--oscillations-dampen-weight", "0.1",
+             "--oscillations-freeze-threshold", "0.2",
+             "--oscillations-freeze-ema-momentum", "0.5"]
+# (c): the card's step against the CPU's, MobileNetV2 at full width with
+# one block a stage (every stride kept, so the pool still sees 7x7), batch 2
+QAT_CUT_SETTING = ((1, 16, 1, 1), (6, 24, 1, 2), (6, 32, 1, 2), (6, 64, 1, 2),
+                   (6, 96, 1, 1), (6, 160, 1, 2), (6, 320, 1, 1))
+QAT_CHECK_BATCH = 2
+
+
+def qat_flags(mode, tmp):
+    """``train-qat`` on MobileNetV2 at batch ``QAT_BATCH``: (a) ``fp8``,
+    ``scripts/image_net.sh``'s flags with learnable maxval and a separate
+    range optimizer; (b) ``osc``, the int8 flags at 4-bit weights with LSQ
+    and ``OSC_FLAGS``. Both save ``<tmp>/latest``."""
+    flags = cnn_flags("mobilenet_v2_quantized",
+                      "published" if mode == "fp8" else "int8 packed")
+    flags[0] = "train-qat"
+    flags[flags.index("--batch-size") + 1] = str(QAT_BATCH)
+    flags = [f for f in flags if f != "--packed-weights"]
+    flags += (["--fp8-learn-maxval", "--sep-quant-optimizer"] if mode == "fp8" else OSC_FLAGS)
+    return flags + ["--max-epochs", str(QAT_EPOCHS), "--steps-per-epoch", str(QAT_STEPS),
+                    "--reestimate-bn-batches", str(QAT_STEPS), "--save-checkpoint-dir", tmp]
+
+
+@contextlib.contextmanager
+def captured_qat(cli, record):
+    """Records, for the ``train-qat`` run inside, its model
+    (``record["model"]``), its trainable ranges after calibration
+    (``record["ranges"]``), each step's loss and synced wall seconds, and,
+    with freezing on, after each step the number of frozen weights whose
+    code is not their target (``record["unpinned"]``, summed) and the
+    frozen fraction (``record["frozen"]``)."""
+    from fp8_quantization_tpu_torch.eval import trainer
+    from fp8_quantization_tpu_torch.quant import oscillations as osc
+
+    setup, make_step = cli.setup, trainer.make_qat_step
+    record.update(losses=[], step_s=[], unpinned=0, frozen=[])
+
+    def setup_call(args):
+        out = setup(args)
+        record["model"], record["qc"] = out[0], out[2]
+        return out
+
+    def make_step_call(model, *args, **kw):
+        step, init_state = make_step(model, *args, **kw)
+
+        def init_call(m):
+            state = init_state(m)
+            record["ranges"] = {k: t.detach().clone() for k, t in state.quant_train.items()}
+            return state
+
+        def step_call(state, x, y):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, x, y)
+            torch.cuda.synchronize()
+            record["step_s"].append(time.perf_counter() - t0)
+            record["losses"].append(float(loss))
+            fstate = state.osc.get("freeze")
+            if fstate:
+                wq = record["qc"].weight_quantizer()
+                with torch.no_grad():
+                    for path, w, q in osc.iter_weight_sites(model):
+                        s = fstate[path]
+                        x_int, _, _ = osc._int_coords(wq, q, w)
+                        record["unpinned"] += int((x_int != s["target_int"])[s["frozen"]].sum())
+                record["frozen"].append(float(osc.frozen_fraction(fstate)))
+            return state, loss
+
+        return step_call, init_call
+
+    cli.setup, trainer.make_qat_step = setup_call, make_step_call
+    try:
+        yield record
+    finally:
+        cli.setup, trainer.make_qat_step = setup, make_step
+
+
+def run_train_qat(cli, counters, mode, tmp):
+    """One ``train-qat`` run (:func:`qat_flags`) with every count zeroed just
+    before it: no kernel launches, the loss is finite in every epoch, and
+    the run's ``latest`` checkpoint restores to equal logits; ``fp8``: at
+    least one ``maxval`` moved; ``osc``: some weights froze and every frozen
+    weight kept its code. Returns its summary."""
+    import os
+
+    from fp8_quantization_tpu_torch.quant.sites import ESTIMATE, FIXED
+    from fp8_quantization_tpu_torch.utils.checkpoint import load_checkpoint
+
+    argv = qat_flags(mode, tmp)
+    args = cli.build_parser().parse_args(argv)
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    with captured_qat(cli, {}) as rec:
+        last = cli.run_train_qat(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(counters)
+    model = rec["model"]
+    moved = sum(int((t.detach() != rec["ranges"][k]).sum())
+                for k, t in model.state_dict(keep_vars=True).items() if k in rec["ranges"])
+    # the checkpoint, restored into a model built afresh, gives equal logits
+    dev = next(model.parameters()).device
+    fresh, example = cli.build_model(args.architecture, rec["qc"], dev, torch.Generator())
+    with torch.no_grad():
+        fresh(example, ESTIMATE)
+        load_checkpoint(os.path.join(tmp, "latest"), fresh)
+        x = torch.randn((2, CNN_SIZE, CNN_SIZE, 3), generator=torch.Generator().manual_seed(3)
+                        ).to(dev)
+        restored = torch.equal(fresh(x, FIXED), model(x, FIXED))
+    losses = rec["losses"]
+    finite = bool(np.isfinite(losses).all()) and np.isfinite(last["loss"])
+    ok = (not any(counts.values()) and finite and restored
+          and len(losses) == QAT_EPOCHS * QAT_STEPS)
+    if mode == "fp8":
+        ok = ok and moved > 0
+    else:
+        ok = ok and rec["frozen"][-1] > 0 and rec["unpinned"] == 0
+    step_ms = 1e3 * float(np.median(rec["step_s"][1:]))
+    phase("main", f"train-qat mobilenet_v2_quantized {mode}, batch {QAT_BATCH}, "
+                  f"{QAT_EPOCHS}x{QAT_STEPS} steps ({card_power()}): losses "
+                  f"{[round(v, 4) for v in losses]}, last epoch {last}, {moved} trainable range "
+                  f"entries moved of {sum(t.numel() for t in rec['ranges'].values())}, "
+                  + (f"frozen fraction a step {[f'{v:.3g}' for v in rec['frozen']]}, frozen "
+                     f"weights off their code {rec['unpinned']}, " if mode == "osc" else "")
+                  + f"checkpoint restores to equal logits {restored}, median step {step_ms:.1f} "
+                  f"ms (synced), run {wall:.1f} s, launches {counts}, ok={ok}")
+    if not ok:
+        raise SystemExit(f"train-qat {mode}: a kernel launched, a loss is not finite, the "
+                         "ranges or frozen codes misbehaved, or the checkpoint differs")
+    del fresh
+    return {"counts": counts, "losses": losses, "step_ms": step_ms, "wall_s": wall,
+            "frozen": rec["frozen"][-1] if rec["frozen"] else None, "moved": moved}
+
+
+def _updates(model, before):
+    return {k: (t.detach().float().cpu() - before[k]) for k, t in
+            model.state_dict().items() if k in before}
+
+
+def check_qat_step(cli, dev):
+    """(c): one QAT step (SGD with momentum, ranges in the same optimizer)
+    of MobileNetV2 at full width, cut to one block a stage
+    (``QAT_CUT_SETTING``), batch ``QAT_CHECK_BATCH``, on the card and on the
+    CPU from one calibrated state: the relative RMS of the card's weight and
+    range updates against the CPU's, held to ``RMS_LIMIT``."""
+    import copy
+
+    from fp8_quantization_tpu_torch.models import mobilenet_v2
+    from fp8_quantization_tpu_torch.quant import qat
+    from fp8_quantization_tpu_torch.quant.sites import ESTIMATE
+
+    args = cli.build_parser().parse_args(qat_flags("fp8", "unused"))
+    qc = cli.config_from_args(args)
+    saved = mobilenet_v2.INVERTED_RESIDUAL_SETTING
+    mobilenet_v2.INVERTED_RESIDUAL_SETTING = QAT_CUT_SETTING
+    try:
+        cpu = torch.device("cpu")
+        model, example = cli.build_model(args.architecture, qc, cpu,
+                                         torch.Generator().manual_seed(10))
+    finally:
+        mobilenet_v2.INVERTED_RESIDUAL_SETTING = saved
+    gen = torch.Generator().manual_seed(11)
+    calib = torch.randn((QAT_CHECK_BATCH, CNN_SIZE, CNN_SIZE, 3), generator=gen)
+    x = torch.randn((QAT_CHECK_BATCH, CNN_SIZE, CNN_SIZE, 3), generator=gen)
+    y = torch.randint(0, 1000, (QAT_CHECK_BATCH,), generator=gen)
+    with torch.no_grad():
+        model(example, ESTIMATE)
+        model(calib, ESTIMATE)
+    card = copy.deepcopy(model).to(dev)
+    before = {k: v.detach().float().clone() for k, v in model.state_dict().items()}
+    trainable = qat.trainable_range_params(qc)
+    losses, updates = {}, {}
+    for name, m in (("cpu", model), ("card", card)):
+        step, init = qat.make_qat_step(m, qat.make_optimizer("SGD", 1e-2, 0.9), trainable=trainable)
+        _, loss = step(init(m), x.to(next(m.parameters()).device), y)
+        losses[name] = float(loss)
+        updates[name] = _updates(m, before)
+    num = sum(float(((updates["card"][k] - u) ** 2).sum()) for k, u in updates["cpu"].items())
+    den = sum(float((u ** 2).sum()) for u in updates["cpu"].values())
+    rms = (num / den) ** 0.5
+    ranges = [k for k in updates["cpu"] if k.rsplit(".", 1)[1] in trainable]
+    moved = sum(int((updates["cpu"][k] != 0).sum()) for k in ranges)
+    ok = rms <= RMS_LIMIT and np.isfinite(losses["card"]) and moved > 0
+    phase("model", f"QAT step, MobileNetV2 width 1.0 cut to {len(QAT_CUT_SETTING)} blocks, batch "
+                   f"{QAT_CHECK_BATCH}: loss card {losses['card']:.6f} / CPU {losses['cpu']:.6f}, "
+                   f"relative RMS of the weight and range updates {rms:.4g} (limit {RMS_LIMIT}; "
+                   f"{moved} range entries moved on the CPU), ok={ok}")
+    if not ok:
+        raise SystemExit("the card's QAT step and the CPU's disagree")
+    del card
+    return rms
+
+
+def qat_ladder(cli, dev, counters):
+    """(d): ms a step (CUDA events, median of ``QAT_RUNG_STEPS`` after one
+    warm-up step), device launches a step and busy share (``busy_share``)
+    at (a)'s shapes: plain f32 training, fake-quant training with frozen
+    ranges (the FIXED phase, model parameters only) and QAT with learnable
+    ranges (``make_qat_step``, Adam for the ranges), after
+    ``scripts/bench_qat.py``'s decomposition. No kernel launches."""
+    import torch.nn.functional as F
+
+    from fp8_quantization_tpu_torch.eval.driver import calibrate
+    from fp8_quantization_tpu_torch.quant import qat
+    from fp8_quantization_tpu_torch.quant.sites import FIXED, FP32
+
+    args = cli.build_parser().parse_args(qat_flags("fp8", "unused"))
+    model, _, qc, _ = cli.setup(args)
+    batches = list(cli.make_train_batches(args, model, 2))
+    calibrate(model, batches[:1])
+    x = torch.as_tensor(batches[1][0]).to(dev)
+    y = torch.as_tensor(batches[1][1]).to(dev).long()
+
+    def train_step(qp):
+        params = list(model.parameters())
+        opt = qat.make_optimizer("SGD", 1e-3, 0.9)(params)
+
+        def run():
+            for p in params:
+                p.grad = None
+            F.cross_entropy(model(x, qp), y).backward()
+            opt.step()
+        return run
+
+    q_step, q_init = qat.make_qat_step(model, qat.make_optimizer("SGD", 1e-3, 0.9),
+                                       qat.make_optimizer("Adam", 1e-4),
+                                       trainable=qat.trainable_range_params(qc))
+    rungs = {"plain f32 training": train_step(FP32),
+             "fake-quant, frozen ranges": train_step(FIXED)}
+    zero_counts(counters)
+    out = {}
+    for name, fn in rungs.items():
+        out[name] = (forward_ms(fn, QAT_RUNG_STEPS), *busy_share(fn))
+    state = [q_init(model)]
+
+    def qat_run():
+        state[0] = q_step(state[0], x, y)[0]
+    out["QAT, learnable ranges"] = (forward_ms(qat_run, QAT_RUNG_STEPS), *busy_share(qat_run))
+    qat.release_ranges(state[0])
+    counts = read_counts(counters)
+    for name, (ms, wall, device, launches) in out.items():
+        phase("main", f"QAT ladder, MobileNetV2 width 1.0, batch {QAT_BATCH}, {name}: {ms:.2f} ms "
+                      f"a step (median of {QAT_RUNG_STEPS}), {launches} device launches, busy "
+                      f"{device / wall:.3f} ({device:.2f} device ms of a profiled {wall:.2f}) "
+                      f"({card_power()})")
+    if any(counts.values()):
+        raise SystemExit(f"the QAT ladder launched a kernel: {counts}")
+    del model
+    return {name: {"ms": v[0], "launches": v[3], "busy": v[2] / v[1]} for name, v in out.items()}
+
+
+def run_qat(cli, counters, dev):
+    """The ``train-qat`` phase: (a) and (b) through the CLI, (c)
+    the card's step against the CPU's, (d) the timing ladder. Returns its
+    summary and wall seconds."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    runs = {}
+    for mode in ("fp8", "osc"):
+        tmp = tempfile.mkdtemp(prefix=f"chip_smoke_qat_{mode}_")
+        try:
+            runs[mode] = run_train_qat(cli, counters, mode, tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    rms = check_qat_step(cli, dev)
+    ladder = qat_ladder(cli, dev, counters)
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    phase("qat", f"the train-qat phase took {seconds:.1f} s")
+    return {"runs": runs, "rms": rms, "ladder": ladder, "seconds": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -4760,6 +5062,8 @@ def main() -> int:
     # BERT-base: the nlp entry point three ways and the serving modes
     bert = run_bert(dev, counters)
     bert_s += bert["seconds"]
+    # train-qat on MobileNetV2 at full width: no kernel on its path
+    qat = run_qat(cli, counters, dev)
 
     # K1, K2 and K4 checked and timed at the shapes of one batch-8 forward
     times = time_serving_kernels(fm, dm, dev, gemm_err)
@@ -4874,6 +5178,8 @@ def main() -> int:
         **({"per_surgery_forward": {f: k3_surgery[f] for f in ("launches", "ms", "plain_ms",
                                                                 "bound_ms", "bound_by")}}
            if key == "K3" else {}),
+        # the train-qat runs of phase 4 and the QAT ladder: no launch
+        "qat_launches": {run: r["counts"][key] for run, r in qat["runs"].items()},
         # the BERT-base runs of phase 4 (launches per nlp run and per serving
         # forward at 32 x 128) and K2/K4 per BERT-base forward at that batch
         **({"bert_launches": {
@@ -4957,6 +5263,14 @@ def main() -> int:
                   + f"; nlp --model-dir load {bert['nlp']['--model-dir']['load_s']:.2f} s, port "
                   f"{bert['nlp']['--model-dir']['port_s']:.3f} s; the BERT checks and runs "
                   f"{bert_s:.1f} s"
+                  + "; train-qat MobileNetV2 at batch " + f"{QAT_BATCH}: " + ", ".join(
+                      f"{mode} median step {r['step_ms']:.1f} ms, run {r['wall_s']:.1f} s"
+                      for mode, r in qat["runs"].items())
+                  + f", frozen fraction {qat['runs']['osc']['frozen']:.4g}, card step against "
+                  f"the CPU's relative RMS {qat['rms']:.4g}, ladder " + ", ".join(
+                      f"{name} {r['ms']:.2f} ms a step ({r['launches']} launches, busy "
+                      f"{r['busy']:.3f})" for name, r in qat["ladder"].items())
+                  + f", the phase {qat['seconds']:.1f} s"
                   + f"; {served}; per batch-{BATCH} forward (K1-K4) or serving run (K5, K6, "
                   "K7): "
                   f"{per_forward}; K7 per batch-{BATCH} ViT-B/16 forward {k7_vit['ms']:.4f} ms "

@@ -1,5 +1,5 @@
-"""Command-line interface: ``validate-quantized`` and
-``validate-quantized-demo`` (port of ``cli.py``).
+"""Command-line interface: ``validate-quantized``,
+``validate-quantized-demo`` and ``train-qat`` (port of ``cli.py``).
 
 Same commands, flags and defaults as the JAX package's CLI, so the
 reference's flag sets (``scripts/image_net.sh``) run unchanged:
@@ -26,6 +26,13 @@ Data: synthetic batches, or ``--images-dir``: evaluation from ``<dir>/val``,
 calibration and BN re-estimation batches from ``<dir>/train``
 (``eval.data``; ``--native-loader`` decodes the val batches in C++ threads,
 ``eval.native_data``). The mesh flags raise.
+
+``train-qat`` calibrates, then fine-tunes with quantization in the loop
+(``eval.trainer.train_qat``): learnable ranges, LSQ gradient scaling
+(``--grad-scaling``), a separate range optimizer
+(``--sep-quant-optimizer``), oscillation dampening and freezing
+(``--oscillations-*``), BN re-estimation, evaluation and a ``latest``
+checkpoint after each epoch.
 ``--cuda`` (the default) runs on the GPU and raises when there is none;
 ``--no-cuda`` runs on the CPU.
 """
@@ -178,7 +185,49 @@ def build_parser() -> argparse.ArgumentParser:
     sub = parser.add_subparsers(dest="command", required=True)
     _common(sub.add_parser("validate-quantized"))
     _common(sub.add_parser("validate-quantized-demo"))
+    # calibrate, then QAT: the entry point that consumes --oscillations-*
+    tq = sub.add_parser("train-qat", help="calibrate then QAT-finetune")
+    _common(tq)
+    tq.add_argument("--learning-rate", type=float, default=1e-3)
+    tq.add_argument("--optimizer", type=str, default="SGD")
+    tq.add_argument("--momentum", type=float, default=0.9)
+    tq.add_argument("--weight-decay", type=float, default=None)
+    tq.add_argument("--learning-rate-schedule", type=str, default=None,
+                    help="'MultiStepLR:<epoch>:...' or 'cosine[:<final lr>]'")
+    tq.add_argument("--max-epochs", type=int, default=1)
+    _add_bool_flag(tq, "sep-quant-optimizer", False)
+    tq.add_argument("--quant-optimizer", type=str, default="Adam")
+    tq.add_argument("--quant-learning-rate", type=float, default=1e-4)
+    _add_bool_flag(tq, "grad-scaling", False)
+    tq.add_argument("--steps-per-epoch", type=int, default=None)
+    tq.add_argument("--tb-logging-dir", type=str, default=None)
     return parser
+
+
+def osc_configs_from_args(args):
+    """args -> (OscDampConfig | None, OscFreezeConfig | None), which
+    ``quant.qat.make_qat_step`` consumes."""
+    from .config import OscDampConfig, OscFreezeConfig
+
+    damp = None
+    if args.oscillations_dampen_weight is not None:
+        damp = OscDampConfig(
+            weight=args.oscillations_dampen_weight,
+            aggregation=args.oscillations_dampen_aggregation,
+            weight_final=args.oscillations_dampen_weight_final,
+            anneal_start=args.oscillations_dampen_anneal_start,
+        )
+    freeze = None
+    if args.oscillations_freeze_threshold > 0.0:
+        freeze = OscFreezeConfig(
+            threshold=args.oscillations_freeze_threshold,
+            ema_momentum=args.oscillations_freeze_ema_momentum,
+            use_ema=args.oscillations_freeze_use_ema,
+            max_bits=args.oscillations_freeze_max_bits,
+            threshold_final=args.oscillations_freeze_threshold_final,
+            anneal_start=args.oscillations_freeze_anneal_start,
+        )
+    return damp, freeze
 
 
 def config_from_args(args) -> QuantConfig:
@@ -442,11 +491,72 @@ def run_validate(args) -> dict:
             "checkpoint": checkpoint}
 
 
+def run_train_qat(args) -> dict:
+    """Build (and load ``--model-dir``), calibrate on the training batches,
+    then QAT (``eval.trainer.train_qat``): ``--steps-per-epoch`` (default
+    8) batches an epoch, BN re-estimated on the training batches after each
+    epoch under ``--reestimate-bn-batches`` > 0, evaluation, and
+    ``<--save-checkpoint-dir>/latest``. Consumes the ``--oscillations-*``
+    flags. Training runs in the fixed phase, where no kernel has a
+    gradient, so the serving-mode flags raise. Returns the last epoch's
+    metrics."""
+    from .eval.driver import calibrate
+    from .eval.trainer import train_qat
+
+    if args.fast_mode or args.packed_weights or args.chained_acts:
+        raise ValueError("train-qat trains in the fixed phase: --fast-mode, "
+                         "--packed-weights and --chained-acts run kernels that have "
+                         "no gradient")
+    model, device, qc, example = setup(args)
+    spe = args.steps_per_epoch or 8
+
+    synthetic = (args.architecture == "demo_quantized" or args.synthetic_data
+                 or not args.images_dir)
+
+    def train_batches():
+        # an epoch of --images-dir is the whole train split, or its first
+        # --steps-per-epoch batches
+        return make_train_batches(args, model, spe if synthetic else args.steps_per_epoch)
+
+    def eval_batches():
+        if synthetic:
+            return train_batches()
+        return make_batches(args, model, args.max_eval_batches)
+
+    calibrate(model, train_batches(), num_est_batches=args.num_est_batches,
+              quant_w=args.weight_quant, quant_a=args.act_quant)
+    osc_damp, osc_freeze = osc_configs_from_args(args)
+    _, history = train_qat(
+        model, train_batches,
+        max_epochs=args.max_epochs,
+        eval_batches=eval_batches,
+        optimizer=args.optimizer,
+        learning_rate=args.learning_rate,
+        momentum=args.momentum,
+        weight_decay=args.weight_decay,
+        learning_rate_schedule=args.learning_rate_schedule,
+        sep_quant_optimizer=args.sep_quant_optimizer,
+        quant_optimizer=args.quant_optimizer,
+        quant_learning_rate=args.quant_learning_rate,
+        grad_scaling=args.grad_scaling,
+        reestimate_bn_stats=args.reestimate_bn_batches > 0,
+        save_checkpoint_dir=args.save_checkpoint_dir,
+        tb_logging_dir=args.tb_logging_dir,
+        steps_per_epoch=args.steps_per_epoch,
+        osc_damp=osc_damp,
+        osc_freeze=osc_freeze,
+    )
+    print(f"qat history: {history}")
+    return history[-1] if history else {}
+
+
 def main(argv=None):
     logging.basicConfig(level=os.environ.get("LOGLEVEL", "INFO"))
     args = build_parser().parse_args(argv)
     if args.command in ("validate-quantized", "validate-quantized-demo"):
         return run_validate(args)
+    if args.command == "train-qat":
+        return run_train_qat(args)
     raise SystemExit(f"unknown command {args.command}")
 
 

@@ -110,6 +110,38 @@ class ApproxConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class OscDampConfig:
+    """Oscillation-dampening regularizer (``quant.oscillations``), the
+    ``--oscillations-dampen-*`` flags."""
+
+    weight: float = 0.0                     # oscillations_dampen_weight
+    aggregation: str = "kernel_mean"        # sum | mean | kernel_mean
+    weight_final: Optional[float] = None    # cosine-anneal target
+    anneal_start: float = 0.25              # relative to total iterations
+
+    @property
+    def enabled(self) -> bool:
+        return self.weight > 0.0 or (self.weight_final or 0.0) > 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class OscFreezeConfig:
+    """Oscillation freezing (``quant.oscillations``), the
+    ``--oscillations-freeze-*`` flags."""
+
+    threshold: float = 0.0                  # freeze when EMA freq exceeds
+    ema_momentum: float = 0.001
+    use_ema: bool = True                    # pin round(EMA of x_int)
+    max_bits: int = 4                       # only track layers this low-bit
+    threshold_final: Optional[float] = None
+    anneal_start: float = 0.25
+
+    @property
+    def enabled(self) -> bool:
+        return self.threshold > 0.0
+
+
+@dataclasses.dataclass(frozen=True)
 class QuantConfig:
     """Model-wide quantization setup."""
 

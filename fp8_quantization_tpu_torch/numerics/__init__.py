@@ -8,7 +8,8 @@ from .formats import E2M5, E3M4, E4M3, E5M2, ExMy, default_bias
 from .fp8_ste import (default_maxval, fp8_grid, fp8_grid_scaled, fp8_max_value,
                       quantize_to_fp8_ste)
 from .luts import get_error_table
-from .rounding import exp2_exact, exp2_int, round_ste
+from .rounding import (ewgs_round, exp2_exact, exp2_int, round_ste, scale_grad,
+                       stacked_sigmoid_round, stochastic_round_ste)
 
 __all__ = [
     "ApproxStats",
@@ -33,4 +34,8 @@ __all__ = [
     "exp2_exact",
     "exp2_int",
     "round_ste",
+    "scale_grad",
+    "stochastic_round_ste",
+    "ewgs_round",
+    "stacked_sigmoid_round",
 ]

@@ -17,13 +17,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .rounding import exp2_exact, round_ste
+from .rounding import clip, exp2_exact, round_ste
 
 
 def _mant_and_bias(n_bits: int, maxval, mantissa_bits, sign_b):
     """(M, bias) of the grid: the mantissa width clamped to the format and
     the derived exponent bias."""
-    M = torch.minimum(torch.clamp(round_ste(mantissa_bits), min=1.0), n_bits - sign_b)
+    M = clip(round_ste(mantissa_bits), 1.0, n_bits - sign_b)
     E = n_bits - sign_b - M
     return M, torch.round(2.0 ** E - torch.log2(maxval) + torch.log2(2 - 2.0 ** (-M)) - 1)
 

@@ -2,8 +2,10 @@
 ``numerics/rounding.py``, whose ``jax.custom_vjp``s they replace).
 
 Forwards are bit-exact with the JAX package; backwards are the
-straight-through estimators. Powers of two are built from the float's
-exponent field, never from ``exp2``/``pow`` (the package-wide invariant).
+straight-through estimators and, for QAT, the gradient-shaping ones: LSQ's
+``scale_grad``, EWGS (``ewgs_round``) and the stacked-sigmoid rounding.
+Powers of two are built from the float's exponent field, never from
+``exp2``/``pow`` (the package-wide invariant).
 """
 
 from __future__ import annotations
@@ -35,6 +37,34 @@ def ldexp(x, e):
     e = torch.as_tensor(e).to(torch.int32)
     h = torch.div(e, 2, rounding_mode="floor")
     return x * pow2(h) * pow2(e - h)
+
+
+class _Clip(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, lo, hi):
+        ctx.save_for_backward(x)
+        ctx.bounds = lo, hi
+        if isinstance(lo, torch.Tensor) != isinstance(hi, torch.Tensor):
+            return torch.clamp(torch.clamp(x, min=lo), max=hi)
+        return torch.clamp(x, lo, hi)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        lo, hi = ctx.bounds
+        inside = (x > lo) & (x < hi)
+        edge = (x == lo) | (x == hi)
+        return g * inside + 0.5 * g * edge, None, None
+
+
+def clip(x, lo, hi):
+    """``jnp.clip`` (``minimum(maximum(x, lo), hi)``) with constant bounds
+    (numbers, or tensors without a gradient): the values of
+    ``torch.clamp``, and the JAX package's gradient, which is split in half
+    at a bound, where ``torch.clamp`` passes all of it. Quantized values
+    land on their grid's integer bounds exactly, and ReLU6 meets exact
+    zeros, so QAT's gradients need it."""
+    return _Clip.apply(x, lo, hi)
 
 
 class _RoundSTE(torch.autograd.Function):
@@ -78,3 +108,81 @@ def exp2_int(e):
     """``2**e`` for an int tensor ``e``, exact, as float32."""
     e = torch.as_tensor(e)
     return ldexp(torch.ones(e.shape, dtype=torch.float32, device=e.device), e)
+
+
+class _StochasticRoundSTE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, generator):
+        noise = torch.rand(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+        return torch.floor(x + noise)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def stochastic_round_ste(x, generator=None):
+    """``floor(x + u)`` with ``u`` uniform in [0, 1) drawn from ``generator``
+    (the JAX package takes a PRNG key); identity gradient."""
+    return _StochasticRoundSTE.apply(x, generator)
+
+
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
+def scale_grad(x, scale):
+    """Identity forward; the gradient is multiplied by ``scale`` (LSQ's
+    gradient scaling of a quantizer's step and zero point)."""
+    return _ScaleGrad.apply(x, scale)
+
+
+class _EWGSRound(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scaling_factor):
+        x_int = torch.round(x)
+        ctx.save_for_backward(x - x_int)
+        ctx.delta = scaling_factor
+        return x_int
+
+    @staticmethod
+    def backward(ctx, g):
+        (diff,) = ctx.saved_tensors
+        return g * (1 + ctx.delta * torch.sign(g) * diff), None
+
+
+def ewgs_round(x, scaling_factor):
+    """Round half to even; the element-wise gradient scaling of EWGS:
+    ``g * (1 + delta * sign(g) * (x - round(x)))``."""
+    return _EWGSRound.apply(x, scaling_factor)
+
+
+class _StackedSigmoidRound(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, alpha):
+        ctx.save_for_backward(x)
+        # a number stays on the host: a 0-dim tensor joins any device's ops
+        ctx.alpha = torch.as_tensor(alpha, dtype=x.dtype)
+        return torch.round(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        alpha = ctx.alpha
+        sig_scale = 1 - 2 * torch.sigmoid(alpha / 2)
+        x_rest = x - torch.floor(x) - 0.5
+        s = torch.sigmoid(x_rest * -alpha)
+        return s * (1 - s) * -alpha / sig_scale * g, None
+
+
+def stacked_sigmoid_round(x, alpha):
+    """Round half to even; the gradient is that of a sigmoid of steepness
+    ``alpha`` stacked on every integer step."""
+    return _StackedSigmoidRound.apply(x, alpha)

@@ -1,5 +1,7 @@
 """Fusable activation registry (port of ``ops/activations.py``): plain torch
-callables keyed by name, and the pure-clamp ones' bounds."""
+callables keyed by name, and the pure-clamp ones' bounds. The clamps take
+``jnp.clip``'s gradient at their bounds (``numerics.rounding.clip``): a
+quantized value of exactly 0 meets ReLU6's lower bound."""
 
 from __future__ import annotations
 
@@ -8,18 +10,20 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from ..numerics.rounding import clip
+
 
 def relu6(x):
-    return torch.clamp(x, 0.0, 6.0)
+    return clip(x, 0.0, 6.0)
 
 
 def hardtanh(x):
-    return torch.clamp(x, -1.0, 1.0)
+    return clip(x, -1.0, 1.0)
 
 
 def hard_sigmoid(x):
     # torch F.hardsigmoid: clip(x/6 + 1/2, 0, 1)
-    return torch.clamp(x / 6.0 + 0.5, 0.0, 1.0)
+    return clip(x / 6.0 + 0.5, 0.0, 1.0)
 
 
 def hard_swish(x):

@@ -1,5 +1,7 @@
-"""Quantizers, range estimators and quantization sites (port of
+"""Quantizers, range estimators, quantization sites and QAT (port of
 ``fp8_quantization_tpu.quant``)."""
+
+from . import qat
 
 from .sites import (
     CHAINED,
@@ -15,4 +17,4 @@ from .sites import (
 )
 
 __all__ = ["CHAINED", "ESTIMATE", "FAST", "FIXED", "FP32", "PACKED", "CodedFP",
-           "QuantPhase", "QuantSite", "decoded"]
+           "QuantPhase", "QuantSite", "decoded", "qat"]

@@ -15,14 +15,14 @@ channel with axis -1.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Tuple
 
 import torch
 
-from .. import LATER as _LATER
 from ..config import FP8Config, QMethod, QuantizerConfig
 from ..numerics.fp8_ste import default_maxval, quantize_to_fp8_ste, quantize_to_fp8_ste_affine
-from ..numerics.rounding import pow2, round_ste
+from ..numerics.rounding import clip, pow2, round_ste, scale_grad
 
 QuantState = Dict[str, torch.Tensor]
 
@@ -74,8 +74,7 @@ def fp_apply_affine(cfg: QuantizerConfig, state: QuantState, aff
 def fp_bias(cfg: QuantizerConfig, state: QuantState) -> torch.Tensor:
     """Derived exponent bias without quantizing data."""
     sign_b = state["sign_bits"].to(torch.float32)
-    M = torch.minimum(torch.clamp(round_ste(state["mantissa_bits"]), min=1.0),
-                      cfg.n_bits - sign_b)
+    M = clip(round_ste(state["mantissa_bits"]), 1.0, cfg.n_bits - sign_b)
     E = cfg.n_bits - sign_b - M
     bias = 2.0 ** E - torch.log2(state["maxval"]) + torch.log2(2 - 2.0 ** (-M)) - 1
     return torch.round(bias)
@@ -112,7 +111,7 @@ def uniform_scale(cfg: QuantizerConfig, delta):
     """The grid step: ``delta`` (at least ``_EPS``) in the linear scale
     domain, ``exp(delta)`` in the log domain."""
     if cfg.scale_domain == "linear":
-        return torch.clamp(delta, min=_EPS)
+        return clip(delta, _EPS, math.inf)
     return torch.exp(delta)
 
 
@@ -129,19 +128,28 @@ def uniform_apply(cfg: QuantizerConfig, state: QuantState, x, channel_axis: int 
                   grad_scaling: bool = False):
     """Fake-quantize ``x`` onto the uniform grid:
     ``scale * (clip(round(x / scale) + zp, int_min, int_max) - zp)`` with the
-    straight-through rounding gradient."""
-    if grad_scaling:
-        raise NotImplementedError(f"LSQ gradient scaling {_LATER}")
+    straight-through rounding gradient, and ``jnp.clip``'s at the integer
+    bounds (``clip``). ``grad_scaling`` scales the
+    gradients of the step and (asymmetric) zero point by LSQ's
+    ``(mean(int_max) * elements per channel) ** -0.5``."""
+    symmetric = cfg.method == QMethod.symmetric_uniform
     delta = bcast_param(state["delta"], x.ndim, channel_axis)
     scale = uniform_scale(cfg, delta)
-    if cfg.method == QMethod.symmetric_uniform:
+    if symmetric:
         int_min, int_max = sym_int_bounds(cfg, state["signed"])
         zero_point = 0.0
     else:
         int_min, int_max = 0.0, 2.0 ** cfg.n_bits - 1
         zp = round_ste(bcast_param(state["zero_float"], x.ndim, channel_axis))
-        zero_point = torch.clamp(zp, int_min, int_max)
-    x_int = torch.clamp(round_ste(x / scale) + zero_point, int_min, int_max)
+        zero_point = clip(zp, int_min, int_max)
+    if grad_scaling:
+        num_elements = x.numel() / (x.shape[channel_axis % x.ndim] if cfg.per_channel else 1)
+        mean_max = torch.mean(int_max) if isinstance(int_max, torch.Tensor) else int_max
+        gs = (mean_max * num_elements) ** -0.5
+        scale = scale_grad(scale, gs)
+        if not symmetric:
+            zero_point = scale_grad(zero_point, gs)
+    x_int = clip(round_ste(x / scale) + zero_point, int_min, int_max)
     return scale * (x_int - zero_point)
 
 
@@ -150,8 +158,10 @@ def uniform_set_quant_range(cfg: QuantizerConfig, state: QuantState, x_min, x_ma
     """Fold (min, max) into the grid: the range always holds zero and is at
     least ``_EPS`` wide; a symmetric grid is unsigned when the whole range
     is non-negative, an asymmetric one takes its zero point from ``x_min``."""
-    x_min = torch.clamp(torch.atleast_1d(x_min.to(torch.float32)), max=0.0)
-    x_max = torch.clamp(torch.atleast_1d(x_max.to(torch.float32)), min=_EPS)
+    x_min = torch.atleast_1d(x_min.to(torch.float32))
+    x_max = torch.atleast_1d(x_max.to(torch.float32))
+    x_min = clip(x_min, -math.inf, 0.0)
+    x_max = clip(x_max, _EPS, math.inf)
     new = dict(state)
     if cfg.method == QMethod.symmetric_uniform:
         signed = (torch.min(x_min) < 0).to(torch.int32).reshape(1)

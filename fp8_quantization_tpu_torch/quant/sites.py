@@ -30,7 +30,6 @@ from typing import Optional
 import torch
 from torch import nn
 
-from .. import LATER as _LATER
 from ..config import EstimatorConfig, QMethod, QuantizerConfig
 from ..numerics.rounding import round_ste, to_int32
 from . import estimators, quantizers
@@ -161,7 +160,8 @@ class QuantPhase:
     attention (K6) kernels; ``None`` and ``False`` keep the einsum path, as
     in the JAX package. ``reestimate_bn`` has the BN layers normalize with
     the batch's stats and store them (``eval.driver.reestimate_bn``);
-    ``grad_scaling`` raises until its slice lands.
+    ``grad_scaling`` scales the gradients of the uniform quantizers' ranges
+    as LSQ does (``quantizers.uniform_apply``).
     """
 
     phase: str = "fixed"  # "estimate" | "fixed"
@@ -178,8 +178,6 @@ class QuantPhase:
     def __post_init__(self):
         if self.phase not in ("estimate", "fixed"):
             raise ValueError(f"unknown phase {self.phase!r}")
-        if self.grad_scaling:
-            raise NotImplementedError(f"QuantPhase.grad_scaling {_LATER}")
 
     @property
     def estimating(self) -> bool:
@@ -362,10 +360,21 @@ class QuantSite(nn.Module):
         x = x.to(torch.float32)
         per_channel = self.qcfg.per_channel
         q = self.quant_state()
+        # training (autograd on): the ranges are computed afresh from the
+        # state, so their gradients reach it as in the JAX package
+        training = torch.is_grad_enabled()
         if qp.estimating:
+            # the min/max ranges keep their gradient to x while training (the
+            # JAX package does not stop it), and read a copy of the state
+            # that this call overwrites; the searches' in-place arithmetic
+            # takes a detached x
+            keep = training and not estimators.uses_search_grid(self.ecfg)
+            est = self._state(self.est_keys)
+            if keep:
+                est = {k: v.clone() for k, v in est.items()}
             new_est, (x_min, x_max, mbits) = estimators.update(
-                self.ecfg, self.qcfg, self._state(self.est_keys), x.detach(),
-                per_channel, self.channel_axis)
+                self.ecfg, self.qcfg, est, x if keep else x.detach(), per_channel,
+                self.channel_axis)
             q = quantizers.set_quant_range(self.qcfg, q, x_min, x_max)
             if mbits is not None and not uniform:
                 # the MSE search elects the mantissa width; written in place,
@@ -374,11 +383,13 @@ class QuantSite(nn.Module):
             with torch.no_grad():
                 for k, v in {**q, **new_est}.items():
                     getattr(self, k).copy_(v)
-            q = self.quant_state()
+            if not training:
+                q = self.quant_state()
         if uniform:
             # uniform grids are not bf16-exact: f32 values in every phase
-            if qp.estimating or per_channel:
-                y = quantizers.uniform_apply(self.qcfg, q, x, self.channel_axis)
+            if qp.estimating or per_channel or training:
+                y = quantizers.uniform_apply(self.qcfg, q, x, self.channel_axis,
+                                             qp.grad_scaling)
             else:
                 # uniform_apply's arithmetic on the grid derived once per state
                 s, zp, lo, hi = self.uniform_int_params()

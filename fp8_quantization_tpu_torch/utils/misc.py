@@ -1,8 +1,8 @@
-"""Small utilities: timing and seeding (port of ``utils/misc.py``).
+"""Small utilities: timing, seeding and the regularizers' cosine schedule
+(port of ``utils/misc.py``).
 
 The JAX package's ``approx_compiler_options`` raises XLA's scoped-VMEM
 limit for approx conv models on a TPU; the port has no counterpart.
-``CosineTempDecay`` goes with QAT.
 """
 
 from __future__ import annotations
@@ -60,3 +60,22 @@ def seed_all(seed: int) -> torch.Generator:
     np.random.seed(seed)
     torch.manual_seed(seed)
     return torch.Generator().manual_seed(seed)
+
+
+class CosineTempDecay:
+    """Cosine annealing schedule for regularizer weights: ``start_temp``
+    until ``rel_decay_start * t_max``, then a cosine to ``end_temp`` at
+    ``t_max``."""
+
+    def __init__(self, t_max: int, temp_range=(20.0, 2.0), rel_decay_start: float = 0):
+        self.t_max = t_max
+        self.start_temp, self.end_temp = temp_range
+        self.decay_start = rel_decay_start * t_max
+
+    def __call__(self, t):
+        if t < self.decay_start:
+            return self.start_temp
+        rel_t = (t - self.decay_start) / (self.t_max - self.decay_start)
+        return self.end_temp + 0.5 * (self.start_temp - self.end_temp) * (
+            1 + np.cos(rel_t * np.pi)
+        )

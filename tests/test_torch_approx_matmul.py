@@ -114,9 +114,10 @@ def test_cpu_tensor_takes_plain_version(rng):
 
 
 def test_unported_modes_raise():
-    """What stays unported around the approximate path: the mesh flags,
-    ring-attention prefill and LSQ gradient scaling (the oracle-only modes
-    run: the cases below)."""
+    """What stays unported around the approximate path: the mesh flags and
+    ring-attention prefill (the oracle-only modes run: the cases below).
+    LSQ gradient scaling is ported with QAT: a phase carries it, and QAT
+    refuses the approximate multiplier, which has no gradient."""
     from fp8_quantization_tpu_torch import cli as tcli
     from fp8_quantization_tpu_torch import config as tc
     from fp8_quantization_tpu_torch.models.llama import LLAMA3_8B, QuantLlamaBlock
@@ -128,8 +129,15 @@ def test_unported_modes_raise():
         tcli.setup(args)
     with pytest.raises(NotImplementedError, match="later slice"):
         QuantLlamaBlock(tc.QuantConfig(), LLAMA3_8B, ring_spec=("mesh", "seq"))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        QuantPhase(grad_scaling=True)
+    assert QuantPhase(grad_scaling=True).grad_scaling
+    from fp8_quantization_tpu_torch.models.demo import QuantizedDemoModel
+    from fp8_quantization_tpu_torch.quant import qat
+
+    approx = tc.QuantConfig(quantize_input=True, run_method=tc.RunMethodConfig(
+        res_quantizer_flag=True, approx_flag=True))
+    model = QuantizedDemoModel(approx)
+    with pytest.raises(ValueError, match="approximate multiplier"):
+        qat.make_qat_step(model, qat.make_optimizer(), grad_scaling=True)[1](model)
 
 
 _j_golden_full = jax.jit(j_golden, static_argnums=(2, 3), static_argnames=(

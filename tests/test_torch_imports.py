@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``fp8_quantization_tpu_torch`` and no
-line of ``chip_smoke.py`` imports JAX, flax or the JAX package, not even a
-module of it that is free of JAX. Checked on the parsed source, so an import
+line of ``chip_smoke.py`` imports JAX, flax, optax, tensorflow or the JAX
+package, not even a module of it that is free of JAX. Checked on the parsed source, so an import
 inside a function counts as well."""
 
 import ast
@@ -10,7 +10,7 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "fp8_quantization_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "fp8_quantization_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tensorflow", "fp8_quantization_tpu")
 
 
 def _port_files():

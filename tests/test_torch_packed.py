@@ -234,7 +234,8 @@ def test_serving_flags_with_cuda_and_no_gpu_raise(monkeypatch):
 
 
 def test_later_slices_raise():
-    """LSQ gradient scaling raises. Fused CNN boundaries and the int8 codes
+    """LSQ gradient scaling, which raised until QAT was ported, now rides
+    a phase. Fused CNN boundaries and the int8 codes
     of a uniform conv, which raised until the CNN serving boundary was
     ported, now work: a pending ``Affine`` decodes, and packing such a conv
     gives kernel-shaped ``w_i8`` codes."""
@@ -247,8 +248,8 @@ def test_later_slices_raise():
     conv.w_q = torch.zeros((1, 1, 2, 2))
     _, report = fastpath.pack_dense_caches(conv, uniform)
     assert report == {"": 1.0} and conv.w_i8.shape == (1, 1, 2, 2)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        dataclasses.replace(tsites.FIXED, grad_scaling=True)
+    lsq = dataclasses.replace(tsites.FIXED, grad_scaling=True)
+    assert lsq.grad_scaling and not lsq.estimating
     # BN re-estimation is ported (the CNN slice)
     assert dataclasses.replace(tsites.FIXED, reestimate_bn=True).reestimate_bn
     site = tsites.QuantSite(_qc(tc, False).act_quantizer(), _qc(tc, False).act_range)

@@ -142,14 +142,25 @@ def test_quant_site_estimate_then_fixed(rng, per_channel):
 
 def test_unported_pieces_raise():
     # the serving phases (fast, packed, chained) and every range estimator
-    # are ported (tests/test_torch_estimators.py); these are not
-    with pytest.raises(NotImplementedError):
-        tsites.QuantPhase(phase="fixed", grad_scaling=True)
-    # BN re-estimation is ported (the CNN slice); LSQ gradient scaling is not
+    # are ported (tests/test_torch_estimators.py), and so is LSQ gradient
+    # scaling (the QAT slice, tests/test_torch_qat.py): a phase carries it
+    assert tsites.QuantPhase(phase="fixed", grad_scaling=True).grad_scaling
+    # BN re-estimation is ported (the CNN slice)
     assert tsites.QuantPhase(phase="fixed", reestimate_bn=True).reestimate_bn
+    # LSQ gradient scaling leaves the forward as it is, bit for bit JAX's,
+    # and scales the step's gradient by (int_max * elements) ** -0.5
     uniform = tc.QuantizerConfig(method=tc.QMethod.symmetric_uniform)
-    with pytest.raises(NotImplementedError):
-        tq.apply(uniform, tq.init(uniform), torch.ones(3), grad_scaling=True)
+    j_uniform = jc.QuantizerConfig(method=jc.QMethod.symmetric_uniform)
+    x = torch.tensor([0.3, -2.0, 1.7])
+    state = dict(tq.init(uniform), delta=torch.tensor([0.5], requires_grad=True))
+    y = tq.apply(uniform, state, x, grad_scaling=True)
+    j_state = dict(jq.init(j_uniform), delta=jnp.asarray([0.5], jnp.float32))
+    np.testing.assert_array_equal(y.detach().numpy(), np.asarray(jq.apply(
+        j_uniform, j_state, jnp.asarray(x.numpy()), grad_scaling=True)))
+    y.sum().backward()
+    plain = dict(state, delta=torch.tensor([0.5], requires_grad=True))
+    tq.apply(uniform, plain, x).sum().backward()
+    torch.testing.assert_close(state["delta"].grad, plain["delta"].grad * (127 * 3) ** -0.5)
     # spatial ranks 1 and 2 are ported (the surgery slice); 3 is not
     assert tlayers.QuantConv(tc.QuantConfig(), 4, 4, kernel_size=(3,)).strides == (1,)
     with pytest.raises(NotImplementedError):

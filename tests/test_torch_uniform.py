@@ -150,8 +150,12 @@ def test_uniform_quantizer_matches_jax(rng, method, signed, n_bits):
         else:
             step = float(tq.uniform_scale(tcfg, ts["delta"])[0])
             np.testing.assert_allclose(ty, jy, rtol=0, atol=step * 1.001)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tq.apply(tcfg, ts, torch.from_numpy(x), grad_scaling=True)
+    # LSQ gradient scaling (ported with QAT) changes gradients only: the
+    # forward is the unscaled one bit for bit, and JAX's within the step
+    ty_lsq = tq.apply(tcfg, ts, torch.from_numpy(x), grad_scaling=True).numpy()
+    np.testing.assert_array_equal(ty_lsq, ty)
+    jy_lsq = np.asarray(jq.apply(jcfg, js, jnp.asarray(x), grad_scaling=True))
+    np.testing.assert_allclose(ty_lsq, jy_lsq, rtol=0, atol=step * 1.001)
 
 
 def _sites(rng, method, signed, n_bits, shape=(64, 32)):
