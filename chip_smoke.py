@@ -142,6 +142,24 @@ Phases, one line each (any failure exits non-zero; no phase is skipped):
    training, fake-quant training with frozen ranges and QAT with learnable
    ranges, each its ms a step (CUDA events, median of 5), device launches
    and busy share.
+   Then a foreign plain-PyTorch ViT-B/16 (HF ``ViTForImageClassification``'s
+   module names, seeded weights loaded strictly) quantized by interception
+   (``models.flax_surgery.quantize_flax_model``) under the published flags
+   with the approximate multiplier, batch 8: one calibration and two eval
+   batches (K3 74 times a forward, K1/K2/K4 never; ms/img), every K3 call
+   of one forward against its plain version on 64 rows of its own operands,
+   layer 0's ``intermediate.dense`` (1576 x 768 x 3072) bit-equal to a port
+   ``QuantDense`` holding its kernel and site state, the FP32 phase bit-equal
+   to the foreign model, a ``filter_fn`` without the patch conv and the
+   classifier (K3 72 times), one forward under ``utils/profiling.trace`` (74
+   K3 kernel events, their device ms beside the port ViT's and K3's bound,
+   ``device_peaks`` the H100's, ``roofline``), and depth 2 at batch 1 through
+   K3 and its plain version; rank-3 ``QuantConv`` (3x3x3, 64 -> 64 on 2 x 8
+   x 28 x 28 x 64) and ``QuantConvTranspose`` (2x2x2 stride 2, 64 -> 32):
+   approx through K3 (each call held on 64 rows of its patches),
+   ``--fast-mode``, packed and FP8 chained (K1 twice a forward), FIXED on
+   the card against the CPU, and the int8 sums against the CPU's (zero
+   point's code 0 and -128); ``fp8_grid_check`` on the card.
    Then ``ContinuousBatcher`` serving Llama-3-8B at full width (32 layers,
    seeded random weights, calibrated as ``scripts/bench_llama.py`` does) with
    ``fused_sdpa=True``: 4 slots of 2048, greedy, prompts of 17, 100, 256 and
@@ -251,17 +269,21 @@ import time
 import numpy as np
 import torch
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and float32
-# outside the tensor cores. The float32 rate counts an FMA as two
-# operations, so the CUDA cores do half as many f32 adds a second
-HBM_BYTES_PER_S = 3.35e12
+from fp8_quantization_tpu_torch.utils.profiling import PEAKS
+
+# published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth (written once,
+# in utils/profiling.PEAKS) and float32 outside the tensor cores. The float32
+# rate counts an FMA as two operations, so the CUDA cores do half as many
+# f32 adds a second
+H100 = "H100 80GB HBM3"
+HBM_BYTES_PER_S = PEAKS[H100]["hbm_gbps"] * 1e9
 F32_OPS_PER_S = 67e12
 F32_ADDS_PER_S = F32_OPS_PER_S / 2
 # shared memory serves 32 four-byte words a clock on each SM: K3's floor is
 # one table read a product (csrc/approx_matmul.cu)
 SHARED_WORDS_PER_SM_CLOCK = 32
 # dense bf16 tensor-core peak: the least time for a GEMM's 2MKN operations
-BF16_TC_OPS_PER_S = 989e12
+BF16_TC_OPS_PER_S = PEAKS[H100]["bf16_tflops"] * 1e12
 
 # the flagship approx setting: E3M4 with the D3 compensation table
 FLAGSHIP = dict(expo_width=3, mant_width=4, with_comp=True, dnsmp_factor=3,
@@ -960,9 +982,11 @@ MSE_EVALS = 2
 # the plain-PyTorch run methods on the published flags (and the approx
 # ones), one eval batch each, of fewer images: the OF/UF oracle takes ~9.5 s
 # an image on the card (PERF.md §6). The OF/UF run is held against a
-# K3 run of the same flags and batch size: the same calibration and images
+# K3 run of the same flags and batch size: the same calibration and images.
+# One image a batch keeps the whole script well inside its time limit on a
+# slow host (two took ~20 s more)
 ORACLE_EVALS = 1
-ORACLE_BATCH = 2
+ORACLE_BATCH = 1
 K3_ORACLE_FLAGS = _flags(APPROX_FLAGS, max_eval_batches=ORACLE_EVALS, batch_size=ORACLE_BATCH)
 QAMA_FLAGS = _flags(PUBLISHED_FLAGS, max_eval_batches=ORACLE_EVALS, batch_size=ORACLE_BATCH,
                     swap={"--no-quantize-after-mult-and-add": "--quantize-after-mult-and-add"})
@@ -4937,6 +4961,531 @@ def run_qat(cli, counters, dev):
     return {"runs": runs, "rms": rms, "ladder": ladder, "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# A foreign ViT-B/16 quantized by interception, rank-3 convolutions,
+# profiling and the grid check
+# ---------------------------------------------------------------------------
+
+FOREIGN_EVALS = 2
+# K3 per forward of the intercepted foreign ViT-B/16: its 72 projections, the
+# patch conv and the classifier (the port's QuantizedViT's count), and with
+# the patch conv and the classifier filtered out
+FOREIGN_K3_PER_FORWARD = LAUNCHES_PER_FORWARD
+FOREIGN_UNFILTERED = ("vit.embeddings.patch_embeddings.projection", "classifier")
+# the port's QuantizedViT: K3 ms per batch-8 forward (PERF.md §6, phase 3's timing)
+PORT_VIT_K3_MS = 116.1
+# K3's kernel in the profiler's trace
+K3_KERNEL_NAME = "approx_matmul_kernel"
+
+
+class _Dense(torch.nn.Module):
+    """HF's one-``dense`` blocks (``ViTIntermediate``, ``ViTOutput``,
+    ``ViTSelfOutput``)."""
+
+    def __init__(self, i, o, act=None):
+        super().__init__()
+        self.dense = torch.nn.Linear(i, o)
+        self.act = act
+
+    def forward(self, x):
+        y = self.dense(x)
+        return y if self.act is None else self.act(y)
+
+
+class _SelfAttention(torch.nn.Module):
+    def __init__(self, h, heads):
+        super().__init__()
+        self.heads = heads
+        self.query, self.key, self.value = (torch.nn.Linear(h, h) for _ in range(3))
+
+    def forward(self, x):
+        b, t, h = x.shape
+        d = h // self.heads
+        q, k, v = (p(x).view(b, t, self.heads, d).transpose(1, 2)
+                   for p in (self.query, self.key, self.value))
+        probs = torch.softmax(q @ k.transpose(-1, -2) / d ** 0.5, dim=-1)
+        return (probs @ v).transpose(1, 2).reshape(b, t, h)
+
+
+class _Attention(torch.nn.Module):
+    def __init__(self, h, heads):
+        super().__init__()
+        self.attention = _SelfAttention(h, heads)
+        self.output = _Dense(h, h)
+
+    def forward(self, x):
+        return self.output(self.attention(x))
+
+
+class _Layer(torch.nn.Module):
+    def __init__(self, s):
+        super().__init__()
+        h = s.hidden_size
+        self.attention = _Attention(h, s.num_heads)
+        self.intermediate = _Dense(h, s.mlp_dim, torch.nn.GELU())
+        self.output = _Dense(s.mlp_dim, h)
+        self.layernorm_before = torch.nn.LayerNorm(h, eps=s.layer_norm_eps)
+        self.layernorm_after = torch.nn.LayerNorm(h, eps=s.layer_norm_eps)
+
+    def forward(self, x):
+        x = x + self.attention(self.layernorm_before(x))
+        return x + self.output(self.intermediate(self.layernorm_after(x)))
+
+
+class _PatchEmbeddings(torch.nn.Module):
+    def __init__(self, s):
+        super().__init__()
+        self.projection = torch.nn.Conv2d(3, s.hidden_size, s.patch_size, stride=s.patch_size)
+
+
+class _Embeddings(torch.nn.Module):
+    def __init__(self, s):
+        super().__init__()
+        tokens = (s.image_size // s.patch_size) ** 2 + 1
+        self.cls_token = torch.nn.Parameter(torch.zeros(1, 1, s.hidden_size))
+        self.position_embeddings = torch.nn.Parameter(torch.zeros(1, tokens, s.hidden_size))
+        self.patch_embeddings = _PatchEmbeddings(s)
+
+    def forward(self, x):
+        p = self.patch_embeddings.projection(x).flatten(2).transpose(1, 2)
+        return torch.cat([self.cls_token.expand(p.shape[0], -1, -1), p], 1) \
+            + self.position_embeddings
+
+
+class _Encoder(torch.nn.Module):
+    def __init__(self, s):
+        super().__init__()
+        self.layer = torch.nn.ModuleList(_Layer(s) for _ in range(s.num_layers))
+
+    def forward(self, x):
+        for layer in self.layer:
+            x = layer(x)
+        return x
+
+
+class _ViTModel(torch.nn.Module):
+    def __init__(self, s):
+        super().__init__()
+        self.embeddings = _Embeddings(s)
+        self.encoder = _Encoder(s)
+        self.layernorm = torch.nn.LayerNorm(s.hidden_size, eps=s.layer_norm_eps)
+
+    def forward(self, x):
+        return self.layernorm(self.encoder(self.embeddings(x)))
+
+
+class ForeignViT(torch.nn.Module):
+    """A plain-PyTorch ViT-B/16 under HF ``ViTForImageClassification``'s
+    module names (stock ``nn.Conv2d``, ``nn.Linear``, ``nn.LayerNorm``,
+    ``nn.GELU``, softmax; NCHW images); it knows nothing of quantization."""
+
+    def __init__(self, s):
+        super().__init__()
+        self.vit = _ViTModel(s)
+        self.classifier = torch.nn.Linear(s.hidden_size, s.num_classes)
+
+    def forward(self, x):
+        return self.classifier(self.vit(x)[:, 0])
+
+
+def foreign_vit(spec, dev, seed=17):
+    """A ``ForeignViT`` on ``dev`` holding ``porting.seeded_source_state``'s
+    seeded HF-named weights (loaded strictly; built on the meta device, so
+    no init is computed and then thrown away)."""
+    from fp8_quantization_tpu_torch.models.porting import seeded_source_state
+
+    with torch.device("meta"):
+        model = ForeignViT(spec)
+    model = model.to_empty(device=dev)
+    model.load_state_dict(seeded_source_state(
+        "vit_quantized", torch.Generator().manual_seed(seed), spec=spec), strict=True)
+    return model.eval()
+
+
+def foreign_images(spec, batches, batch, seed, dev):
+    """Synthetic NCHW images on ``dev``."""
+    from fp8_quantization_tpu_torch.eval.data import synthetic_batches
+
+    return [torch.from_numpy(x).permute(0, 3, 1, 2).contiguous().to(dev)
+            for x, _ in synthetic_batches(batch, batches, image_size=spec.image_size,
+                                          num_classes=spec.num_classes, seed=seed)]
+
+
+def flags_qc(cli, argv):
+    return cli.config_from_args(cli.build_parser().parse_args(argv))
+
+
+@contextlib.contextmanager
+def verified_k3(record):
+    """Every K3 call made inside goes to its kernel, and the first
+    ``SLICE_ROWS`` rows of its result are held to the plain version on those
+    rows of its own operands: bit for bit, or (f32 sums in another order)
+    within ``K * 2^-24 * sum_k |term_k|`` as phase 3 holds K3. ``record``
+    gathers {"calls", "equal" (bit for bit), "worst" |d|}."""
+    from fp8_quantization_tpu_torch.numerics.approx_matmul import approx_products
+    from fp8_quantization_tpu_torch.numerics.luts import get_error_table
+    from fp8_quantization_tpu_torch.ops.cuda import approx_matmul as k3
+
+    kernel = k3.approx_matmul
+    record.update(calls=0, equal=0, worst=0.0)
+
+    def call(a, b, bias_a, bias_b, bias_r, **kw):
+        # the wrapper counts its launches under its module-level name
+        k3.approx_matmul = kernel
+        try:
+            ours = kernel(a, b, bias_a, bias_b, bias_r, **kw)
+        finally:
+            k3.approx_matmul = call
+        rows = ours[:SLICE_ROWS]
+        plain = k3.approx_matmul_plain(a[:SLICE_ROWS], b, bias_a, bias_b, bias_r, **kw)
+        err = (rows - plain).abs()
+        record["calls"] += 1
+        record["worst"] = max(record["worst"], float(err.max()))
+        if torch.equal(rows, plain):
+            record["equal"] += 1
+        else:
+            table = get_error_table(kw["expo_width"], kw["mant_width"], kw["with_comp"],
+                                    kw["dnsmp_factor"])
+            terms = approx_products(
+                a[:SLICE_ROWS], b, kw["expo_width"], kw["mant_width"], bias_a, bias_b, bias_r,
+                table, **{f: kw[f] for f in ("with_approx", "with_s2nn2s_opt",
+                                             "golden_clip_of", "quant_btw_mult_accu")})
+            tol = a.shape[1] * 2.0 ** -24 * terms.abs().sum(dim=1)
+            if not (bool((err <= tol).all()) and bool(torch.isfinite(rows).all())):
+                raise SystemExit(f"K3 breaks its bound against the plain version on a model "
+                                 f"call {tuple(a.shape)} @ {tuple(b.shape)}")
+        return ours
+
+    k3.approx_matmul = call
+    try:
+        yield record
+    finally:
+        k3.approx_matmul = kernel
+
+
+def k3_forward_bound(sm_clock_hz, dev):
+    """K3's bound over the 74 products of a batch-8 ViT-B/16 forward (phase
+    3's: the largest of the bytes over HBM bandwidth, one table read a
+    product and one f32 add a product): (bound ms, bytes, products)."""
+    table_reads_per_s = (torch.cuda.get_device_properties(dev).multi_processor_count
+                         * SHARED_WORDS_PER_SM_CLOCK * sm_clock_hz)
+    nbytes = sum(c * 4 * (m * k + k * n + m * n + n + 2) for _, m, k, n, c in layer_shapes(BATCH))
+    products = sum(c * m * k * n for _, m, k, n, c in layer_shapes(BATCH))
+    bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, products / table_reads_per_s,
+                         products / F32_ADDS_PER_S)
+    return bound_ms, nbytes, products
+
+
+def traced_k3(qm, x, qp, sm_clock_hz, dev, log_dir):
+    """One forward under ``utils/profiling.trace``: K3's kernel events in the
+    trace it writes, their device ms, and ``roofline`` of that time beside
+    K3's bound; the device launches of every kind and the forward's wall ms
+    (the trace's host cost included). Returns a summary."""
+    import os
+
+    from fp8_quantization_tpu_torch.utils import profiling
+
+    with torch.no_grad(), profiling.trace(log_dir):
+        t0 = time.perf_counter()
+        qm(x, qp=qp)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    with open(os.path.join(log_dir, profiling.TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k3_events = [e for e in kernels if K3_KERNEL_NAME in e.get("name", "")]
+    device_ms = sum(float(e["dur"]) for e in k3_events) / 1e3
+    if not device_ms:
+        raise SystemExit("the trace holds no K3 kernel time")
+    bound_ms, nbytes, products = k3_forward_bound(sm_clock_hz, dev)
+    peaks = profiling.device_peaks()
+    roof = profiling.roofline(device_ms / 1e3, flops=2.0 * products, bytes_accessed=nbytes)
+    return {"events": len(k3_events), "ms": device_ms, "bound_ms": bound_ms,
+            "bound_share": bound_ms / device_ms, "peaks": peaks, "roofline": roof,
+            "launches": len(kernels), "wall_ms": wall_ms,
+            "busy_share": sum(float(e["dur"]) for e in kernels) / 1e3 / wall_ms}
+
+
+def run_foreign_vit(cli, counters, dev, sm_clock_hz):
+    """The foreign ViT-B/16 at full width, quantized by interception
+    (``models.flax_surgery.quantize_flax_model``) under the
+    ``scripts/image_net.sh`` flags with the approximate multiplier:
+    calibrated on one batch of 8 synthetic images, run on two (K3 74 times
+    a forward, K1/K2/K4 never); every K3 call of one forward held to its
+    plain version on its own operands; one intercepted layer bit-equal to a
+    port ``QuantDense`` holding its kernel and site state; the FP32 phase
+    bit-equal to the foreign model; a ``filter_fn`` without the patch conv
+    and the classifier (K3 72 times); a traced forward (74 K3 events,
+    ``roofline`` against K3's bound); depth 2, batch 1, through K3 and its
+    plain version. Returns its summary."""
+    import shutil
+    import tempfile
+
+    from fp8_quantization_tpu_torch.models import quantize_flax_model
+    from fp8_quantization_tpu_torch.models.vit import VIT_B_16
+    from fp8_quantization_tpu_torch.ops.layers import QuantDense
+    from fp8_quantization_tpu_torch.quant.sites import ESTIMATE, FIXED, FP32
+
+    t0 = time.perf_counter()
+    spec = VIT_B_16
+    approx_qc, pub_qc = flags_qc(cli, APPROX_FLAGS), flags_qc(cli, PUBLISHED_FLAGS)
+    foreign = foreign_vit(spec, dev)
+    calib, *evals = foreign_images(spec, 1 + FOREIGN_EVALS, BATCH, 10, dev)
+    qm = quantize_flax_model(foreign, approx_qc)
+    out = {}
+    with torch.no_grad():
+        zero_counts(counters)
+        qm(calib, qp=ESTIMATE)
+        torch.cuda.synchronize()
+        t_eval = time.perf_counter()
+        logits = [qm(x, qp=FIXED) for x in evals]
+        torch.cuda.synchronize()
+        out["ms_per_img"] = 1e3 * (time.perf_counter() - t_eval) / (FOREIGN_EVALS * BATCH)
+        out["counts"] = counts = read_counts(counters)
+    expected = FOREIGN_K3_PER_FORWARD * (1 + FOREIGN_EVALS)
+    ok = (counts["K3"] == expected and not any(v for k, v in counts.items() if k != "K3")
+          and all(tuple(y.shape) == (BATCH, spec.num_classes) and bool(torch.isfinite(y).all())
+                  for y in logits))
+    phase("foreign", f"ViT-B/16 (plain PyTorch, HF names, seeded) by interception, approx "
+                     f"E3M4: 1 calibration + {FOREIGN_EVALS} eval batches of {BATCH}, "
+                     f"{out['ms_per_img']:.2f} ms/img (eval), launches {counts} (K3 expected "
+                     f"{expected}, the others 0), finite logits {ok}")
+    if not ok:
+        raise SystemExit("foreign ViT-B/16: wrong launch counts or bad logits")
+
+    # every K3 call of one forward on its own operands; layer 0's
+    # intermediate dense (1576 x 768 x 3072) against a port QuantDense
+    seen = []
+    layer = qm.model.vit.encoder.layer[0].intermediate.dense
+    hook = layer.register_forward_hook(lambda mod, args, y: seen.append((args[0], y)))
+    with torch.no_grad(), verified_k3({}) as record:
+        qm(evals[0], qp=FIXED)
+    hook.remove()
+    (x_in, y_layer), = seen
+    dense = QuantDense(approx_qc, spec.hidden_size, spec.mlp_dim, device=dev)
+    dense.load_state_dict({"kernel": layer.weight.t(), "bias": layer.bias,
+                           **{k: v for k, v in layer.state_dict().items()
+                              if "quantizer" in k or k.startswith("w_")}}, strict=True)
+    with torch.no_grad():
+        y_dense = dense(x_in, FIXED)
+    parity = torch.equal(y_dense, y_layer)
+    out["k3_verified"] = record
+    phase("foreign", f"every K3 call of one forward against its plain version on "
+                     f"{SLICE_ROWS} rows of its own operands: {record['calls']} calls, "
+                     f"{record['equal']} bit-equal, max|d| {record['worst']:.3g}; layer 0's "
+                     f"intermediate.dense {tuple(x_in.shape)} x {tuple(layer.weight.shape)} "
+                     f"against a port QuantDense with its kernel and site state: bit-equal "
+                     f"{parity}")
+    if record["calls"] != FOREIGN_K3_PER_FORWARD or not parity:
+        raise SystemExit("foreign ViT-B/16: K3 calls or the per-layer parity failed")
+
+    # the FP32 phase (the published flags: no special run method) and the
+    # filter_fn
+    with torch.no_grad():
+        fp32 = quantize_flax_model(foreign, pub_qc)
+        fp32_equal = torch.equal(fp32(evals[0], qp=FP32), foreign(evals[0]))
+        filtered = quantize_flax_model(
+            foreign, approx_qc, filter_fn=lambda path, mod: path not in FOREIGN_UNFILTERED)
+        filtered(calib, qp=ESTIMATE)
+        zero_counts(counters)
+        filtered(evals[0], qp=FIXED)
+        torch.cuda.synchronize()
+        out["filtered_counts"] = filtered_counts = read_counts(counters)
+    del fp32, filtered
+    phase("foreign", f"FP32 phase bit-equal to the foreign model {fp32_equal}; filter_fn "
+                     f"without {' and '.join(FOREIGN_UNFILTERED)}: launches a forward "
+                     f"{filtered_counts} (K3 expected {FOREIGN_K3_PER_FORWARD - 2})")
+    if not fp32_equal or filtered_counts["K3"] != FOREIGN_K3_PER_FORWARD - 2:
+        raise SystemExit("foreign ViT-B/16: the FP32 phase or the filter_fn failed")
+
+    # one forward traced by utils/profiling
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        zero_counts(counters)
+        out["trace"] = tr = traced_k3(qm, evals[0], FIXED, sm_clock_hz, dev, log_dir)
+        traced_counts = read_counts(counters)
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    roof = tr["roofline"]
+    phase("foreign", f"utils/profiling.trace of one forward: {tr['events']} K3 kernel events "
+                     f"(launches {traced_counts['K3']}), K3 {tr['ms']:.3f} device ms a forward "
+                     f"(the port's QuantizedViT: {PORT_VIT_K3_MS} ms, PERF.md), bound "
+                     f"{tr['bound_ms']:.3f} ms (share {tr['bound_share']:.4f}); device_peaks "
+                     f"{tr['peaks']}; roofline: {roof['gbps']:.1f} GB/s "
+                     f"({roof['bw_fraction_of_peak']:.4f} of peak), 2 x products at "
+                     f"{roof['tflops']:.2f} TFLOP/s ({roof['flops_fraction_of_peak']:.4f} of the "
+                     f"bf16 peak); device launches of every kind {tr['launches']}, busy share "
+                     f"{tr['busy_share']:.3f} of {tr['wall_ms']:.1f} ms (traced)")
+    if (tr["events"] != FOREIGN_K3_PER_FORWARD or traced_counts["K3"] != FOREIGN_K3_PER_FORWARD
+            or any(v != v for v in tr["peaks"].values()) or tr["bound_share"] > 1.0
+            or roof["bw_fraction_of_peak"] > 1.0):
+        raise SystemExit("foreign ViT-B/16: the trace, the peaks or the roofline is wrong")
+    del qm, foreign, logits
+    torch.cuda.empty_cache()
+
+    # depth 2, batch 1: the logits through K3 and through its plain version
+    depth2 = dataclasses.replace(spec, num_layers=2)
+    qm2 = quantize_flax_model(foreign_vit(depth2, dev), approx_qc)
+    (x1,) = foreign_images(depth2, 1, 1, 3, dev)
+    with torch.no_grad():
+        qm2(x1, qp=ESTIMATE)
+        logits = qm2(x1, qp=FIXED)
+        with plain_kernels():
+            plain_logits = qm2(x1, qp=FIXED)
+    compare_logits("foreign ViT approx FIXED by interception", logits, plain_logits, depth2)
+    del qm2
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+# an R3D-style block: 3x3x3 64 -> 64 SAME on 2 x 8 x 28 x 28 x 64
+# channels-last (12,544 patch rows x 1,728), and a 2x2x2 stride-2 transposed
+# conv 64 -> 32; the int8 sums on the input cropped to 4 x 10 x 10 (the CPU
+# sums int32 without BLAS)
+R3_INPUT = (2, 8, 28, 28, 64)
+R3_CROP = (slice(None), slice(0, 4), slice(0, 10), slice(0, 10))
+# K1 launches a forward of one rank-3 layer in the serving phases: its input
+# and res sites (per-channel weights take none)
+R3_K1_PER_FORWARD = 2
+
+
+def rank3_layers(qc, dev, seed=31):
+    from fp8_quantization_tpu_torch.ops.layers import QuantConv, QuantConvTranspose
+
+    gen = torch.Generator().manual_seed(seed)
+    conv = QuantConv(qc, 64, 64, kernel_size=(3, 3, 3), padding="SAME", generator=gen)
+    convt = QuantConvTranspose(qc, 64, 32, kernel_size=(2, 2, 2), strides=(2, 2, 2),
+                               padding="SAME", generator=gen)
+    with torch.no_grad():
+        for m in (conv, convt):
+            m.bias.normal_(0.0, 0.1, generator=gen)
+    return {"conv3d": conv.to(dev), "convT3d": convt.to(dev)}
+
+
+def check_rank3(cli, counters, dev):
+    """Rank-3 ``QuantConv`` / ``QuantConvTranspose`` at an R3D-style block's
+    shapes: approx (K3 on the patches, every call held to its plain version
+    on a 64-row slice), ``--fast-mode`` / packed / FP8 chained (K1 as the
+    sites imply), the int8 conv sums against the CPU's (the zero point's code
+    0 and -128), and the FIXED outputs against the same layers on the CPU.
+    Returns its summary."""
+    import copy
+
+    from fp8_quantization_tpu_torch.eval.driver import cache_quantized_weights
+    from fp8_quantization_tpu_torch.ops import fastpath
+    from fp8_quantization_tpu_torch.ops.fastpath import int8_conv_sums
+    from fp8_quantization_tpu_torch.quant.sites import CHAINED, ESTIMATE, FAST, FIXED, PACKED
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(37)
+    x = torch.randn(R3_INPUT, generator=gen).to(dev)
+    out = {"k3": {}, "k1": {}}
+    approx_qc, pub_qc = flags_qc(cli, APPROX_FLAGS), flags_qc(cli, PUBLISHED_FLAGS)
+    with torch.no_grad():
+        for name, layer in rank3_layers(approx_qc, dev).items():
+            layer(x, ESTIMATE)
+            zero_counts(counters)
+            with verified_k3({}) as record:
+                y = layer(x, FIXED)
+            torch.cuda.synchronize()
+            counts = read_counts(counters)
+            ms = cuda_ms(lambda: layer(x, FIXED), 3)
+            out["k3"][name] = dict(record, launches=counts["K3"], ms=ms)
+            phase("rank3", f"{name} approx FIXED {tuple(x.shape)} -> {tuple(y.shape)}: K3 "
+                           f"launches {counts['K3']}, on {SLICE_ROWS} rows of its patches "
+                           f"bit-equal {record['equal']} of {record['calls']} (max|d| "
+                           f"{record['worst']:.3g}), {ms:.3f} ms a forward")
+            if counts["K3"] != 1 or record["calls"] != 1 or not bool(torch.isfinite(y).all()):
+                raise SystemExit(f"rank-3 {name}: K3 not launched once or bad output")
+        del layer
+        for name, layer in rank3_layers(pub_qc, dev).items():
+            layer(x, ESTIMATE)
+            cpu = copy.deepcopy(layer).cpu()
+            ours, ref = layer(x, FIXED), cpu(x.cpu(), FIXED).to(dev)
+            rms, equal = rel_rms(ours, ref), float((ours == ref).float().mean())
+            cache_quantized_weights(layer, x, fast=True)
+            fastpath.pack_dense_caches(layer, pub_qc)
+            k1 = {}
+            for qp_name, qp in (("FAST", FAST), ("PACKED", PACKED), ("CHAINED", CHAINED)):
+                zero_counts(counters)
+                served = layer(x, qp)
+                torch.cuda.synchronize()
+                k1[qp_name] = read_counts(counters)
+                # K1 is bit-exact: the same layer through its plain version
+                # gives the same output bit for bit
+                with plain_kernels():
+                    plain = layer(x, qp)
+                if not bool(torch.isfinite(served.float()).all()):
+                    raise SystemExit(f"rank-3 {name} {qp_name}: non-finite output")
+                if not torch.equal(served, plain):
+                    raise SystemExit(f"rank-3 {name} {qp_name}: the output through K1 differs "
+                                     f"from the plain version's (max|d| "
+                                     f"{float((served.float() - plain.float()).abs().max()):.3g})")
+            out["k1"][name] = {k: c["K1"] for k, c in k1.items()}
+            phase("rank3", f"{name} published FIXED on the card against the CPU: relative RMS "
+                           f"{rms:.4g} (limit {RMS_LIMIT}), equal fraction {equal:.6f}; launches "
+                           f"FAST / PACKED / CHAINED {k1} (K1 expected {R3_K1_PER_FORWARD} "
+                           "each, no other kernel); each output bit-equal to the same layer "
+                           "through the plain versions")
+            if rms > RMS_LIMIT or any(
+                    c["K1"] != R3_K1_PER_FORWARD or any(v for k, v in c.items() if k != "K1")
+                    for c in k1.values()):
+                raise SystemExit(f"rank-3 {name}: FIXED off the CPU's or wrong K1 launches")
+        del layer, cpu
+    # the int8 sums of both layers' shapes, the input cropped
+    codes = torch.randint(-128, 128, R3_INPUT, generator=gen, dtype=torch.int8)[R3_CROP]
+    codes[0, 0, 0] = -128
+    cases = {"conv3d": (torch.randint(-127, 128, (3, 3, 3, 64, 64), generator=gen,
+                                      dtype=torch.int8),
+                        dict(strides=(1, 1, 1), padding="SAME", dilation=(1, 1, 1))),
+             "convT3d": (torch.randint(-127, 128, (2, 2, 2, 64, 32), generator=gen,
+                                       dtype=torch.int8),
+                         dict(strides=(1, 1, 1), dilation=(1, 1, 1), input_dilation=(2, 2, 2),
+                              padding=((1, 1),) * 3))}
+    for name, (w, kw) in cases.items():
+        for cx in (0.0, -128.0):
+            ours = int8_conv_sums(codes.to(dev), w.to(dev), torch.tensor(cx, device=dev),
+                                  with_xsum=True, **kw)
+            cpu = int8_conv_sums(codes, w, torch.tensor(cx), with_xsum=True, **kw)
+            if not (torch.equal(ours[0].cpu(), cpu[0]) and torch.equal(ours[1].cpu(), cpu[1])):
+                raise SystemExit(f"rank-3 int8 {name} sums on the card differ from the CPU's, "
+                                 f"cx {cx}")
+    phase("rank3", f"int8 sums of the 3x3x3 conv and the 2x2x2 stride-2 transposed conv on "
+                   f"{tuple(codes.shape)} codes, cx 0 and -128: equal to the CPU int32 path")
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def check_grids_on_card(dev):
+    """``python -m fp8_quantization_tpu_torch.fp8_grid_check`` on the card:
+    every grid a fixed point of the port's ``quantize_to_fp8_ste``."""
+    import io
+
+    from fp8_quantization_tpu_torch import fp8_grid_check
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ok = fp8_grid_check.check_grids(dev)
+    lines = [ln.strip() for ln in buf.getvalue().splitlines() if "idempotent" in ln]
+    phase("grids", f"fp8_grid_check on the card: {'; '.join(lines)}")
+    if not ok:
+        raise SystemExit("fp8_grid_check: a grid is not a fixed point on the card")
+
+
+def run_slice17(cli, counters, dev, sm_clock_hz):
+    """The interception, rank-3 and grid phases, with their wall seconds."""
+    t0 = time.perf_counter()
+    foreign = run_foreign_vit(cli, counters, dev, sm_clock_hz)
+    rank3 = check_rank3(cli, counters, dev)
+    check_grids_on_card(dev)
+    seconds = time.perf_counter() - t0
+    phase("foreign", f"the interception, rank-3 and grid phases took {seconds:.1f} s "
+                     f"(foreign ViT {foreign['seconds']:.1f} s, rank 3 {rank3['seconds']:.1f} s)")
+    return {"foreign": foreign, "rank3": rank3, "seconds": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -5064,6 +5613,9 @@ def main() -> int:
     bert_s += bert["seconds"]
     # train-qat on MobileNetV2 at full width: no kernel on its path
     qat = run_qat(cli, counters, dev)
+    # a foreign ViT-B/16 quantized by interception (K3), rank-3 convs (K3,
+    # K1), profiling and the grid check
+    slice17 = run_slice17(cli, counters, dev, 1e6 * sm_clock_mhz)
 
     # K1, K2 and K4 checked and timed at the shapes of one batch-8 forward
     times = time_serving_kernels(fm, dm, dev, gemm_err)
@@ -5178,6 +5730,21 @@ def main() -> int:
         **({"per_surgery_forward": {f: k3_surgery[f] for f in ("launches", "ms", "plain_ms",
                                                                 "bound_ms", "bound_by")}}
            if key == "K3" else {}),
+        # the foreign ViT-B/16 by interception (launches per run: 1
+        # calibration and 2 eval batches; per forward with the filter_fn and
+        # traced, with the traced forward's device ms) and the rank-3 layers
+        # (launches per forward)
+        **({"foreign_vit_launches": {
+            "approx run": slice17["foreign"]["counts"][key],
+            "filter_fn forward": slice17["foreign"]["filtered_counts"][key],
+            "traced forward": slice17["foreign"]["trace"]["events"]},
+            "per_foreign_vit_forward": {f: slice17["foreign"]["trace"][f]
+                                        for f in ("ms", "bound_ms")},
+            "rank3_launches": {f"{name} approx": r["launches"]
+                               for name, r in slice17["rank3"]["k3"].items()}}
+           if key == "K3" else {}),
+        **({"rank3_launches": {f"{name} {mode}": n for name, r in slice17["rank3"]["k1"].items()
+                               for mode, n in r.items()}} if key == "K1" else {}),
         # the train-qat runs of phase 4 and the QAT ladder: no launch
         "qat_launches": {run: r["counts"][key] for run, r in qat["runs"].items()},
         # the BERT-base runs of phase 4 (launches per nlp run and per serving
@@ -5271,6 +5838,11 @@ def main() -> int:
                       f"{name} {r['ms']:.2f} ms a step ({r['launches']} launches, busy "
                       f"{r['busy']:.3f})" for name, r in qat["ladder"].items())
                   + f", the phase {qat['seconds']:.1f} s"
+                  + f"; foreign ViT-B/16 by interception {slice17['foreign']['ms_per_img']:.2f} "
+                  f"ms/img, K3 {slice17['foreign']['trace']['ms']:.3f} device ms a forward "
+                  f"(QuantizedViT {PORT_VIT_K3_MS}); rank-3 approx ms a forward " + ", ".join(
+                      f"{name} {r['ms']:.3f}" for name, r in slice17["rank3"]["k3"].items())
+                  + f"; the interception, rank-3 and grid phases {slice17['seconds']:.1f} s"
                   + f"; {served}; per batch-{BATCH} forward (K1-K4) or serving run (K5, K6, "
                   "K7): "
                   f"{per_forward}; K7 per batch-{BATCH} ViT-B/16 forward {k7_vit['ms']:.4f} ms "

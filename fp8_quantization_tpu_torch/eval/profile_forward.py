@@ -17,7 +17,8 @@ synthetic batch; with ``--packed-weights`` also the weight cache and the
   summed, and its share of the forward's wall time (the device's busy
   share; one stream, so kernels do not overlap);
 * counts each kernel's launches per forward (K1 ``quantize_block``, K2
-  ``fused_quant_matmul``, K3 ``approx_matmul``, K4 ``dequant_matmul``).
+  ``fused_quant_matmul``, K3 ``approx_matmul``, K4 ``dequant_matmul``), and
+  the device launches of every kind in the profiled forward.
 
 Prints one JSON object. Needs a GPU and raises without one.
 """
@@ -44,7 +45,8 @@ def _counts():
 
 
 def profile_forward(model, x, qp, top: int):
-    """(wall ms, device ms, [(kernel, ms, calls)] of the ``top`` heaviest)."""
+    """(wall ms, device ms, device launches, [(kernel, ms, calls)] of the
+    ``top`` heaviest)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -57,8 +59,8 @@ def profile_forward(model, x, qp, top: int):
                and e.self_device_time_total > 0]
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    return wall_ms, device_ms, [(e.key[:90], e.self_device_time_total / 1e3, e.count)
-                                for e in kernels[:top]]
+    return wall_ms, device_ms, sum(e.count for e in kernels), [
+        (e.key[:90], e.self_device_time_total / 1e3, e.count) for e in kernels[:top]]
 
 
 @torch.no_grad()
@@ -93,7 +95,7 @@ def main(argv=None):
         cli.sync(device)
         times.append(1e3 * (time.perf_counter() - t0))
         launches.append({k: v - before[k] for k, v in _counts().items()})
-    wall_ms, device_ms, top = profile_forward(model, xt, qp, ns.top)
+    wall_ms, device_ms, device_launches, top = profile_forward(model, xt, qp, ns.top)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
@@ -103,7 +105,7 @@ def main(argv=None):
         "ms_per_forward": times, "ms_per_img_median": statistics.median(times) / args.batch_size,
         "launches_per_forward": launches,
         "profiled": {"wall_ms": wall_ms, "device_ms": device_ms,
-                     "busy_share": device_ms / wall_ms,
+                     "busy_share": device_ms / wall_ms, "device_launches": device_launches,
                      "top_kernels": [{"kernel": k, "ms": ms, "calls": n} for k, ms, n in top]},
     }))
 

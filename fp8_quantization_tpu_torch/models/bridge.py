@@ -16,6 +16,13 @@ layers' cache buffers of the same names (``ops.layers.CACHE_KEYS``), and
 ``BNQuantConv``'s buffers. The ViT, the Llama models (``embed``,
 ``layer_{i}``, ``k_cache_quantizer``, ...) and the CNNs (``features_{i}``,
 ``layer{l}_{b}``, ``downsample_0``, ...) carry across alike.
+
+``from_flax_surgery_variables`` does the same for the JAX package's
+``QuantizedFlaxModel`` over a foreign flax model, into the port's
+``QuantizedFlaxModel`` over the foreign PyTorch model of the same names:
+its parameters take torch's layouts and names there (the intercepted layers
+hold the foreign ones), while the site state and the weight cache keep the
+port layers' layouts.
 """
 
 from __future__ import annotations
@@ -61,3 +68,29 @@ def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
         if coll in variables:
             _flatten(variables[coll], [], drop, out)
     return out
+
+
+def from_flax_surgery_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The variables of a JAX ``QuantizedFlaxModel`` -> the ``state_dict``
+    of the port's ``models.flax_surgery.QuantizedFlaxModel`` over the torch
+    twin of its foreign model: as :func:`from_jax_variables`, but a
+    ``params`` leaf ``kernel`` becomes ``weight``, a flax ``(in, out)``
+    Dense kernel ``nn.Linear``'s ``(out, in)`` and an HWIO conv kernel
+    ``nn.Conv2d``'s OIHW, and a LayerNorm ``scale`` becomes ``weight``. The
+    cached ``w_q`` stays ``(in, out)`` / HWIO, the layout the intercepted
+    layers cache (that of the port's ``QuantDense`` / ``QuantConv``)."""
+    out = from_jax_variables({k: v for k, v in variables.items() if k != "params"})
+    params: Dict[str, torch.Tensor] = {}
+    _flatten(variables.get("params", {}), [], None, params)
+    for key, t in params.items():
+        head, _, leaf = key.rpartition(".")
+        if leaf == "kernel":
+            n = t.ndim
+            t = t.t() if n == 2 else t.permute(n - 1, n - 2, *range(n - 2))
+        out[f"{head}.{_TORCH_NAMES.get(leaf, leaf)}" if head else
+            _TORCH_NAMES.get(leaf, leaf)] = t.contiguous()
+    return out
+
+
+# flax parameter names -> torch's
+_TORCH_NAMES = {"kernel": "weight", "scale": "weight"}

@@ -3,7 +3,7 @@ approximate matmul (port of ``fp8_quantization_tpu.numerics``)."""
 
 from .approx_matmul import (ApproxStats, approx_matmul_golden, approx_matmul_golden_v6,
                             approx_products)
-from .codec import compose, decompose, quantize_exmy
+from .codec import compose, decompose, quantize_exmy, value_space
 from .formats import E2M5, E3M4, E4M3, E5M2, ExMy, default_bias
 from .fp8_ste import (default_maxval, fp8_grid, fp8_grid_scaled, fp8_max_value,
                       quantize_to_fp8_ste)
@@ -19,6 +19,7 @@ __all__ = [
     "compose",
     "decompose",
     "quantize_exmy",
+    "value_space",
     "ExMy",
     "E2M5",
     "E3M4",

@@ -30,7 +30,6 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .. import LATER as _LATER
 from ..config import QMethod, QuantConfig
 from ..numerics.rounding import to_int32
 from ..quant import quantizers
@@ -52,9 +51,11 @@ class FastDenseParams(NamedTuple):
 
 
 def scalar_params(qcfg, qstate) -> ScalarQuantParams:
-    """Reduce a per-tensor FP quantizer state to fast-path scalars."""
+    """Reduce a per-tensor FP quantizer state to fast-path scalars. Only the
+    FP quantizer has them (the JAX package asserts so)."""
     if qcfg.method != QMethod.fp_quantizer:
-        raise NotImplementedError(f"fast-path scalars of uniform quantizers {_LATER}")
+        raise ValueError(f"fast-path scalars exist for the fp_quantizer only, not "
+                         f"{qcfg.method.value}")
     if qstate["maxval"].shape[0] != 1:
         raise ValueError("the fast path needs per-tensor params")
     bias = quantizers.fp_bias(qcfg, qstate)
@@ -210,8 +211,8 @@ def quantize_acts_affine(aff, scale, zero_point, int_min, int_max):
 
 def int8_conv_sums(x_codes, w_codes, cx, *, strides, padding, dilation, groups: int = 1,
                    with_xsum: bool = False, input_dilation=None):
-    """The exact int32 sums of a convolution of int8 codes of spatial rank 1
-    or 2: x (B, *S, I), w (*K, I/g, O), padding and input-dilation holes
+    """The exact int32 sums of a convolution of int8 codes of spatial rank 1,
+    2 or 3: x (B, *S, I), w (*K, I/g, O), padding and input-dilation holes
     filled with the zero point's code ``cx`` (so a padded tap is exactly the
     value 0). Returns ``(acc, xsum)``: acc (B, *S_out, O) int32, and with
     ``with_xsum`` each group's window sum of the padded codes (B, *S_out,
@@ -269,8 +270,8 @@ def quantized_conv_int8(x_codes, w_codes, sx, scale, cx, wsum, *, strides, paddi
     zero point in [0, 255] coordinates (``cw = zp - 128``), None for signed
     symmetric weights (the Xsum term is then skipped). x_codes (B, H, W, I)
     int8; w_codes (kh, kw, I/g, O) int8; scale (O,) f32; cx () f32,
-    integer-valued; wsum (O,) int32. Spatial rank 1 works alike (NWC codes,
-    a (kw, I/g, O) kernel); ``input_dilation`` (a transposed conv) fills its
+    integer-valued; wsum (O,) int32. Spatial ranks 1 and 3 work alike (NWC
+    or NDHWC codes, a (kw, I/g, O) or (kd, kh, kw, I/g, O) kernel); ``input_dilation`` (a transposed conv) fills its
     holes with ``cx`` as it fills the padding.
 
     ``as_affine`` (fused-boundary serving): return a pending

@@ -1,5 +1,5 @@
 """Quantized layers with the reference's forward protocol (port of
-``ops/layers.py``: ``QuantDense``, ``QuantConv`` of spatial rank 1 and 2
+``ops/layers.py``: ``QuantDense``, ``QuantConv`` of spatial rank 1, 2 and 3
 (grouped and depthwise too; ``QuantConv1d``), ``QuantConvTranspose(1d)``,
 ``BNQuantConv`` and ``BNQuantDense`` with their unfolded BN,
 ``QuantLayerNorm`` and ``QuantizedActWrapper``).
@@ -60,7 +60,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .. import LATER as _LATER
 from ..config import ApproxConfig, EstimatorConfig, QMethod, QuantConfig
 from ..numerics.approx_matmul import approx_products
 from ..numerics.codec import unpack_exmy
@@ -191,6 +190,10 @@ class _QuantOpBase(nn.Module):
     # True on the BN-fused layers, whose result feeds the unfolded BN at
     # once: they never emit chained codes
     bn_follows = False
+    # False where the layer runs no serving mode (``models.flax_surgery``'s
+    # intercepted layers): the weight cache then keeps the weights as the
+    # sites give them, and no packing format
+    serving = True
 
     def __init__(self, qc: QuantConfig, *, activation: Activation = None,
                  n_bits_w: Optional[int] = None, n_bits_act: Optional[int] = None,
@@ -204,8 +207,14 @@ class _QuantOpBase(nn.Module):
         self.n_bits_w = n_bits_w
         self.n_bits_act = n_bits_act
         self.quantize_output = quantize_output
-        act_q = qc.act_quantizer(n_bits_act)
-        if qc.quantize_input or quantize_output:
+        self._make_sites(act_range_override, weight_channels, res_site, device)
+
+    def _make_sites(self, act_range_override: Optional[EstimatorConfig],
+                    weight_channels: Optional[int], res_site: bool, device):
+        """The activation, res and per-output-channel weight sites."""
+        qc = self.qc
+        act_q = qc.act_quantizer(self.n_bits_act)
+        if qc.quantize_input or self.quantize_output:
             self.activation_quantizer = QuantSite(
                 act_q, act_range_override or qc.act_range, device=device)
         else:
@@ -217,7 +226,7 @@ class _QuantOpBase(nn.Module):
             self.res_quantizer = None
         if weight_channels is not None:
             self.weight_quantizer = QuantSite(
-                qc.weight_quantizer(n_bits_w), qc.weight_range, channel_axis=-1,
+                qc.weight_quantizer(self.n_bits_w), qc.weight_range, channel_axis=-1,
                 num_channels=weight_channels, device=device)
         else:
             self.weight_quantizer = None
@@ -255,22 +264,24 @@ class _QuantOpBase(nn.Module):
         if not qp.quant_w:
             return kernel, None
         # bf16 storage is lossless only for FP (ExMy) grids
-        fast_bf16 = qp.fast and self.qc.method == QMethod.fp_quantizer
+        fast = qp.fast and self.serving
+        fast_bf16 = fast and self.qc.method == QMethod.fp_quantizer
         if qp.cache_weights:
             w, w_bias = self.weight_quantizer(kernel, qp, with_bias=True)
             if fast_bf16:
                 w = w.to(torch.bfloat16)
             wb = w_bias if w_bias is not None else torch.zeros(0, device=w.device)
-            # the layer's own weight n_bits, so packing uses its format
-            fmt = torch.tensor([self.qc.weight_quantizer(self.n_bits_w).n_bits],
-                               dtype=torch.int32, device=w.device)
-            self.w_q, self.w_bias, self.w_nbits = w.detach(), wb.detach(), fmt
+            self.w_q, self.w_bias = w.detach(), wb.detach()
+            if self.serving:
+                # the layer's own weight n_bits, so packing uses its format
+                self.w_nbits = torch.tensor([self.qc.weight_quantizer(self.n_bits_w).n_bits],
+                                            dtype=torch.int32, device=w.device)
             return w, w_bias
         if not qp.estimating and self.w_q is not None:
             w, wb = self.w_q, self.w_bias
             if fast_bf16:
                 w = w.to(torch.bfloat16)
-            elif qp.fast and w.dtype == torch.bfloat16:
+            elif fast and w.dtype == torch.bfloat16:
                 w = w.to(torch.float32)
             return w, (wb if wb.numel() else None)
         return self.weight_quantizer(kernel, qp, with_bias=True)
@@ -503,8 +514,8 @@ def dilate_and_pad(x, pads, input_dilation=None, fill=None):
 
 
 def conv_taps(x, kernel_size, strides, padding, dilation, fill=None, input_dilation=None):
-    """The ``prod(kernel_size)`` taps of a convolution of spatial rank 1 or
-    2 over a channels-last batch (B, *S, I) of any dtype, in kernel order:
+    """The ``prod(kernel_size)`` taps of a convolution of any spatial rank
+    over a channels-last batch (B, *S, I) of any dtype, in kernel order:
     tap ``t`` is the (B, *S_out, I) strided view of the dilated and padded
     input (:func:`dilate_and_pad`) at each output's window position ``t``."""
     pads = _explicit_padding(x.shape[1:-1], kernel_size, strides, dilation, padding,
@@ -529,21 +540,22 @@ def conv_patches(x, kernel_shape, strides, padding, dilation, fill=None, input_d
 
 def conv_nd(x, w, strides, dilation, groups: int = 1):
     """The f32 correlation of a channels-last batch (B, *S, I) already
-    padded with a (*K, I/g, O) kernel: ``F.conv1d`` or ``F.conv2d``."""
+    padded with a (*K, I/g, O) kernel: ``F.conv1d``, ``F.conv2d`` or
+    ``F.conv3d``."""
     n = w.ndim - 2
-    conv = (F.conv1d, F.conv2d)[n - 1]
+    conv = (F.conv1d, F.conv2d, F.conv3d)[n - 1]
     out = conv(x.movedim(-1, 1), w.permute(n + 1, n, *range(n)), stride=tuple(strides),
                dilation=tuple(dilation), groups=groups)
     return out.movedim(1, -1)
 
 
 class QuantConv(_QuantOpBase):
-    """Quantized convolution of spatial rank 1 or 2: channels-last inputs
-    (NWC, NHWC), a ``(*K, I/g, O)`` kernel for ``g = feature_group_count``
-    groups (``g = I`` depthwise), per-channel weight quantization along O.
-    The plain product is ``F.conv1d`` / ``F.conv2d(groups=g)`` in f32 on the
-    padded input; the approx path runs the im2col patches through K3 for
-    ``g = 1`` and through :func:`approx_matmul_oracle`, all groups in one
+    """Quantized convolution of spatial rank 1, 2 or 3: channels-last
+    inputs (NWC, NHWC, NDHWC), a ``(*K, I/g, O)`` kernel for ``g =
+    feature_group_count`` groups (``g = I`` depthwise), per-channel weight
+    quantization along O. The plain product is ``F.conv1d`` / ``F.conv2d`` /
+    ``F.conv3d(groups=g)`` in f32 on the padded input; the approx path runs
+    the im2col patches through K3 for ``g = 1`` and through :func:`approx_matmul_oracle`, all groups in one
     call, otherwise. Every path reads the correlation from
     :meth:`_conv_plan`, which :class:`QuantConvTranspose` overrides."""
 
@@ -555,8 +567,9 @@ class QuantConv(_QuantOpBase):
                  feature_group_count: int = 1, use_bias: bool = True,
                  generator=None, device=None, **kw):
         n = len(kernel_size)
-        if n not in (1, 2):
-            raise NotImplementedError(f"QuantConv of spatial rank {n} {_LATER}")
+        if n not in (1, 2, 3):
+            # torch has no 4-D convolution for the plain product
+            raise ValueError(f"QuantConv of spatial rank {n}: ranks 1 to 3 only")
         g = feature_group_count
         if in_features % g or features % g:
             raise ValueError(f"{g} groups do not divide {in_features} -> {features} channels")
@@ -725,7 +738,7 @@ def conv_transpose_padding(k: int, s: int, d: int, padding: str):
 
 
 class QuantConvTranspose(QuantConv):
-    """Quantized transposed convolution of spatial rank 1 or 2, computed as
+    """Quantized transposed convolution of spatial rank 1, 2 or 3, computed as
     the input-dilated correlation it lowers to (unit window strides, input
     dilation equal to ``strides``, the pads of :func:`conv_transpose_padding`),
     so every path of :class:`QuantConv` serves it: plain, approx, quantize-

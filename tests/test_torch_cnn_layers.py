@@ -75,6 +75,10 @@ CONV_3X3 = dict(kernel_size=(3, 3), strides=(2, 2), padding=[(1, 1), (1, 0)])
 # strided 1x1 downsample
 CONV_STEM = dict(kernel_size=(7, 7), strides=(2, 2), padding=[(3, 3), (3, 3)])
 CONV_DOWNSAMPLE = dict(kernel_size=(1, 1), strides=(2, 2), padding=[(0, 0), (0, 0)])
+# spatial rank 3 (an R3D-style 3x3x3 block, strided in depth)
+CONV_3D = dict(kernel_size=(3, 3, 3), strides=(2, 1, 1), padding=[(1, 1), (1, 0), (0, 1)])
+# the input's spatial size, cut to the conv's rank
+SPATIAL = (7, 6, 5)
 
 
 def _conv_pair(qc_args, groups, *, bn=False, rng, values="int", conv=CONV_3X3, c_in=C_IN,
@@ -86,7 +90,7 @@ def _conv_pair(qc_args, groups, *, bn=False, rng, values="int", conv=CONV_3X3, c
     jcls = jlayers.BNQuantConv if bn else jlayers.QuantConv
     tcls = tlayers.BNQuantConv if bn else tlayers.QuantConv
     kw = dict(conv, feature_group_count=groups, use_bias=not bn)
-    size = (2, 7, 6, c_in)
+    size = (2, *SPATIAL[:len(conv["kernel_size"])], c_in)
     if values == "int":
         x = rng.integers(-3, 4, size=size).astype(np.float32)
     else:
@@ -173,15 +177,16 @@ def test_grouped_quant_conv_matches_jax(groups, rng):
     dict(groups=1), dict(groups=1, conv=CONV_STEM, c_in=3),
     dict(groups=1, conv=CONV_DOWNSAMPLE), dict(groups=C_IN),
     dict(groups=C_IN, expo=2, mant=5, s2nn2s=True, values="grid"),
+    dict(groups=C_IN, conv=CONV_3D),
 ], ids=["g1_k3", "stem_7x7_k147", "downsample_1x1_s2", "depthwise_oracle",
-        "depthwise_e2m5_s2nn2s"])
+        "depthwise_e2m5_s2nn2s", "depthwise_oracle_3d"])
 def test_approx_quant_conv_matches_jax(case, rng, monkeypatch):
     """The approx run method through ESTIMATE then FIXED: g = 1 through K3's
     plain version against JAX's Pallas kernel in interpret mode (at a 3x3
     conv, at ResNet's 7x7 stem with K = 147 and at its strided 1x1
     downsample), grouped convs through the port's oracle against JAX's
     vmapped jnp oracle (with its raw-product zero mask, which the E2M5
-    s2nn2s case exercises)."""
+    s2nn2s case exercises), a depthwise conv of spatial rank 3 too."""
     case = dict(case)
     groups, values = case.pop("groups"), case.pop("values", "int")
     shape = dict(conv=case.pop("conv", CONV_3X3), c_in=case.pop("c_in", C_IN))

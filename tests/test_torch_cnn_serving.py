@@ -155,7 +155,16 @@ LAYER_KW = {
     "strided_valid": dict(features=8, kernel_size=(3, 3), strides=(2, 2), padding="VALID"),
     "depthwise": dict(features=C_IN, kernel_size=(3, 3), feature_group_count=C_IN),
     "g2": dict(features=8, kernel_size=(3, 3), feature_group_count=2),
+    # spatial rank 3: a 3x3x3 conv strided in depth, and a depthwise one
+    "conv3d": dict(features=8, kernel_size=(3, 3, 3), strides=(2, 1, 1)),
+    "depthwise3d": dict(features=C_IN, kernel_size=(3, 3, 3), feature_group_count=C_IN),
 }
+
+
+def _conv_input(rng, kw):
+    """A batch of two inputs of the conv's spatial rank (8 x 8, or 4 x 5 x 5)."""
+    spatial = (8, 8) if len(kw["kernel_size"]) == 2 else (4, 5, 5)
+    return rng.normal(size=(2, *spatial, C_IN)).astype(np.float32)
 
 
 def _port_conv(qc, kw):
@@ -170,12 +179,12 @@ def test_int8_conv_matches_jax(case, rng):
     result leaves as ``Coded`` codes) against JAX, bit for bit; the stripped
     kernel shows the codes served the conv."""
     kw = LAYER_KW[case]
-    x = rng.normal(size=(2, 8, 8, C_IN)).astype(np.float32)
+    x = _conv_input(rng, kw)
     jm = jlayers.QuantConv(qc=uniform_qc(jc), **kw)
     tm = _port_conv(uniform_qc(tc), kw)
     jv = packed_pair(jm, tm, x, uniform_qc(jc), uniform_qc(tc))
-    assert tm.kernel is None and tm.w_i8.shape == (3, 3, C_IN // kw.get("feature_group_count", 1),
-                                                    kw["features"])
+    assert tm.kernel is None and tm.w_i8.shape == (
+        *kw["kernel_size"], C_IN // kw.get("feature_group_count", 1), kw["features"])
     before = launches()
     for name, (got, want) in outputs(jm, jv, tm, x).items():
         np.testing.assert_array_equal(got, want, err_msg=name)
@@ -249,6 +258,10 @@ SERVING_CASES = {
                    lambda qc: tlayers.QuantConv(qc, C_IN, 8, kernel_size=(3, 3)),
                    lambda mod: uniform_qc(mod, method="asymmetric_uniform", res=False)),
     "relu_chain": (lambda qc: JTwoConv(qc=qc), lambda qc: TTwoConv(qc), uniform_qc),
+    # w4a8 at spatial rank 3
+    "int4_3d": (lambda qc: jlayers.QuantConv(qc=qc, features=8, kernel_size=(3, 3, 3)),
+                lambda qc: tlayers.QuantConv(qc, C_IN, 8, kernel_size=(3, 3, 3)),
+                lambda mod: uniform_qc(mod, n_bits=4, n_bits_act=8)),
 }
 
 
@@ -260,12 +273,14 @@ def test_conv_serving_cases_match_jax(case, rng):
     under PACKED and CHAINED (the BN leaves as a pending ``Affine``), bit
     for bit, with BN variances whose ``rsqrt`` is exact."""
     make_j, make_t, make_qc = SERVING_CASES[case]
-    x = rng.normal(size=(2, 8, 8, C_IN)).astype(np.float32)
+    x = _conv_input(rng, dict(kernel_size=(3, 3, 3) if case.endswith("_3d") else (3, 3)))
     jm, tm = make_j(make_qc(jc)), make_t(make_qc(tc))
     edit = exact_bn if case in ("bn", "relu_chain") else None
     jv = packed_pair(jm, tm, x, make_qc(jc), make_qc(tc), edit=edit)
     if case == "int4":
         assert tm.w_i4.shape == (27, 8) and tm.w_i8 is None
+    if case == "int4_3d":
+        assert tm.w_i4.shape == (81, 8) and tm.w_i8 is None
     if case == "relu_chain":
         assert float(tm.conv2.activation_quantizer.uniform_int_params()[1][0]) == 0
         assert float(tm.conv2.activation_quantizer.uniform_int_params()[2][0]) == 0

@@ -1,7 +1,8 @@
 """The conv kinds and layers of the surgery path against the JAX package's,
 on the CPU: ``QuantConv1d``, ``QuantConvTranspose`` and
 ``QuantConvTranspose1d`` (SAME / VALID, strides 1-2, kernel dilation, torch's
-explicit padding and output padding), ``BNQuantDense`` and the tied and
+explicit padding and output padding), ``QuantConv`` and
+``QuantConvTranspose`` of spatial rank 3, ``BNQuantDense`` and the tied and
 untied ``QuantizedActWrapper``.
 
 Each layer runs every method and mode of the port's 2-D ``QuantConv``, as
@@ -80,14 +81,22 @@ KINDS = {
         kernel_size=(4,), strides=(2,), padding=conv_transpose_padding_from_torch((4,), 2, 1, 1)),
         (5, C_IN)),
     "bnlinear": ("BNQuantDense", dict(use_bias=False), (C_IN,)),
+    # spatial rank 3 (JAX's any-rank layers): a strided SAME conv and a
+    # stride-2 transposed conv
+    "conv3d": ("QuantConv", dict(kernel_size=(3, 3, 3), strides=(1, 2, 1), padding="SAME"),
+               (3, 4, 3, C_IN)),
+    "convT3d_same_s2": ("QuantConvTranspose", dict(kernel_size=(2, 2, 2), strides=(2, 2, 2),
+                                                   padding="SAME"), (2, 3, 2, C_IN)),
 }
 # the phases each family holds after ESTIMATE
 FAMILIES = {"fp8": ("FIXED", "FAST", "PACKED", "CHAINED"), "approx": ("FIXED",),
             "qama": ("FIXED",), "int8": ("PACKED", "CHAINED")}
 CASES = ([(k, "fp8") for k in KINDS]
-         + [(k, "approx") for k in ("conv1d", "convT2d_same_s2", "bnlinear")]
-         + [(k, "qama") for k in ("conv1d", "convT2d_same_s2")]
-         + [(k, "int8") for k in ("conv1d", "convT2d_same_s2", "convT1d_torch_s2", "bnlinear")])
+         + [(k, "approx") for k in ("conv1d", "convT2d_same_s2", "bnlinear", "conv3d",
+                                    "convT3d_same_s2")]
+         + [(k, "qama") for k in ("conv1d", "convT2d_same_s2", "conv3d")]
+         + [(k, "int8") for k in ("conv1d", "convT2d_same_s2", "convT1d_torch_s2", "bnlinear",
+                                  "conv3d", "convT3d_same_s2")])
 
 
 def _tree(t):

@@ -161,10 +161,13 @@ def test_unported_pieces_raise():
     plain = dict(state, delta=torch.tensor([0.5], requires_grad=True))
     tq.apply(uniform, plain, x).sum().backward()
     torch.testing.assert_close(state["delta"].grad, plain["delta"].grad * (127 * 3) ** -0.5)
-    # spatial ranks 1 and 2 are ported (the surgery slice); 3 is not
+    # spatial ranks 1 to 3 are ported, as JAX's any-rank conv runs them
+    # (PyTorch has no convolution of rank 4)
     assert tlayers.QuantConv(tc.QuantConfig(), 4, 4, kernel_size=(3,)).strides == (1,)
-    with pytest.raises(NotImplementedError):
-        tlayers.QuantConv(tc.QuantConfig(), 4, 4, kernel_size=(3, 3, 3))
+    conv3 = tlayers.QuantConv(tc.QuantConfig(), 4, 4, kernel_size=(3, 3, 3))
+    assert conv3.strides == (1, 1, 1) and conv3.kernel.shape == (3, 3, 3, 4, 4)
+    with pytest.raises(ValueError):
+        tlayers.QuantConv(tc.QuantConfig(), 4, 4, kernel_size=(3, 3, 3, 3))
 
 
 @pytest.mark.parametrize("padding,strides,dilation", [
