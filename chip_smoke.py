@@ -1570,10 +1570,10 @@ def expected_counts(counters, per_forward, forwards, k6=0, k7=0):
 
 
 def serve_llama(name, model, spec, qp, counters, dev, per_forward, batcher=None, k6=True,
-                record=False):
+                record=False, new_tokens=LLAMA_NEW_TOKENS, uncounted=None):
     """Phase 4: the four prompts, then the fifth into the first slot that
-    retires, 32 greedy tokens each, with every launch count zeroed just
-    before; the counts must be the ones the run's shapes imply: K7 once a
+    retires, ``new_tokens`` (32) greedy tokens each, with every launch count
+    zeroed just before; the counts must be the ones the run's shapes imply: K7 once a
     layer per admission, K6 once a layer per step (none with ``k6`` False:
     a ``PagedBatcher``, or the dense batcher under ``einsum_route``),
     ``per_forward`` (kernel -> launches) per forward and no other kernel.
@@ -1582,7 +1582,9 @@ def serve_llama(name, model, spec, qp, counters, dev, per_forward, batcher=None,
     admission's last prompt row, then each step's) for the bit-for-bit
     comparisons. A ``PagedBatcher`` run also records the pages in use at the
     peak and the pages the late prompt took from the slot retired before
-    it. Returns the run's record: stats, counts and the shapes the kernels
+    it. ``uncounted``: kernel -> calls that a caller routed to the plain
+    version during the run (read after it), taken off the expected counts.
+    Returns the run's record: stats, counts and the shapes the kernels
     saw."""
     from fp8_quantization_tpu_torch.models.paged_kv import PagedBatcher
     from fp8_quantization_tpu_torch.models.serving import ContinuousBatcher, _pad_to_bucket
@@ -1611,7 +1613,7 @@ def serve_llama(name, model, spec, qp, counters, dev, per_forward, batcher=None,
 
     def admit(prompt, request):
         t0 = time.perf_counter()
-        slot = batcher.admit(prompt, max_new_tokens=LLAMA_NEW_TOKENS)   # reads a token: syncs
+        slot = batcher.admit(prompt, max_new_tokens=new_tokens)        # reads a token: syncs
         run["prefill_s"] += time.perf_counter() - t0
         run["prefill_tokens"] += len(prompt)
         run["chunks"].append(_pad_to_bucket(len(prompt)))
@@ -1658,11 +1660,13 @@ def serve_llama(name, model, spec, qp, counters, dev, per_forward, batcher=None,
     expected = expected_counts(counters, per_forward, steps + admissions,
                                k6=spec.num_layers * steps if k6 else 0,
                                k7=spec.num_layers * admissions)
+    for key, n in (uncounted or {}).items():
+        expected[key] -= n
     outputs = run["outputs"]
     run["tokens"] = [outputs[i] for i in sorted(outputs)]
     run["rows"] = [run["rows"][i] for i in sorted(run["rows"])]
     ok = (counts == expected and sorted(outputs) == list(range(len(prompts)))
-          and all(len(o) == LLAMA_NEW_TOKENS and all(0 <= t < spec.vocab_size for t in o)
+          and all(len(o) == new_tokens and all(0 <= t < spec.vocab_size for t in o)
                   for o in outputs.values()))
     run["prefill_tok_s"] = run["prefill_tokens"] / run["prefill_s"]
     run["decode_tok_s"] = run["step_tokens"] / sum(run["step_s"])
@@ -3058,10 +3062,13 @@ def run_llama_serving(dev, counters):
     bf16 cache, its prefix run and its speculative runs, the paged FAST runs
     (plain, prefix, speculative), then packing and stripping in place and
     the PACKED run, prefix run and paged run on a uint8 cache of the same
-    calibrated sites. Returns the spec, the plain runs, the prefix and
-    speculative runs and the paged runs with their dense references."""
+    calibrated sites; the mesh: a ring prefill before packing, and after it
+    the PACKED prompts over a virtual (2, 4) mesh against a recorded run
+    without one. Returns the spec, the plain runs, the prefix and
+    speculative runs, the paged runs with their dense references and the
+    mesh runs."""
     from fp8_quantization_tpu_torch.models.llama import LLAMA3_8B
-    from fp8_quantization_tpu_torch.models.serving import pack_llama
+    from fp8_quantization_tpu_torch.models.serving import ContinuousBatcher, pack_llama
 
     spec = LLAMA3_8B
     t0 = time.perf_counter()
@@ -3089,6 +3096,7 @@ def run_llama_serving(dev, counters):
                                               {"K1": k1, "K2": dense}, paged=True)
     paged["paged spec self-draft"] = run_paged_speculative(model, spec, dev, counters,
                                                            more["spec self-draft"])
+    mesh = {"ring prefill": check_ring_prefill(model, spec, dev)}
     t0 = time.perf_counter()
     report = pack_llama(model)
     torch.cuda.synchronize()
@@ -3105,9 +3113,23 @@ def run_llama_serving(dev, counters):
     paged["paged PACKED"], paged["dense einsum PACKED"] = serve_paged(
         "PACKED+packed_kv+fused", model, spec, serving_phase(True), counters, dev,
         {"K1": k1, "K4": dense}, runs["packed"])
+    # the mesh: the same prompts for MESH_NEW_TOKENS tokens, recorded without
+    # a mesh (the first tokens of the PACKED run) and over a virtual (2, 4) mesh
+    reference = serve_llama("PACKED+packed_kv+fused, uint8 KV, recorded", model, spec,
+                            serving_phase(True), counters, dev, {"K1": k1, "K4": dense},
+                            record=True, new_tokens=MESH_NEW_TOKENS)
+    if reference["tokens"] != [t[:MESH_NEW_TOKENS] for t in runs["packed"]["tokens"]]:
+        raise SystemExit("Llama PACKED: a shorter run gives other first tokens")
+    mesh["mesh PACKED"] = serve_mesh("PACKED+packed_kv+fused, uint8 KV", model, spec,
+                                     serving_phase(True), counters, dev,
+                                     {"K1": k1, "K4": dense}, virtual_mesh(dev, 2, 4), reference)
+    profile_decode("PACKED+packed_kv+fused over a virtual (2, 4) mesh", model, spec,
+                   serving_phase(True), dev, batcher=ContinuousBatcher(
+                       model, spec, slots=LLAMA_SLOTS, max_seq=LLAMA_MAX_SEQ,
+                       qp=serving_phase(True), mesh=virtual_mesh(dev, 2, 4)))
     del model
     torch.cuda.empty_cache()
-    return spec, runs, more, paged
+    return spec, runs, more, paged, mesh
 
 
 def run_llama_w4a8(dev, counters):
@@ -3142,6 +3164,9 @@ def run_llama_w4a8(dev, counters):
                       {"K5": llama_dense_per_forward(spec)})
     run["calib_peak_gb"] = calib_gb
     profile_decode("w4a8 PACKED+fused", model, spec, qp, dev)
+    # K5 per cell of a virtual (1, 4) mesh: integer sums, so every token equal
+    run["mesh"] = serve_mesh("w4a8 PACKED+fused, bf16 KV", model, spec, qp, counters, dev,
+                             {"K5": llama_dense_per_forward(spec)}, virtual_mesh(dev, 1, 4), run)
     del model
     torch.cuda.empty_cache()
     return run
@@ -5486,6 +5511,447 @@ def run_slice17(cli, counters, dev, sm_clock_hz):
     return {"foreign": foreign, "rank3": rank3, "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# The mesh (slice 18): ``parallel/`` over virtual meshes that repeat cuda:0.
+# K4 and K5 run per (data, model) cell on their code shards inside
+# ``partitioned_kernels``; ring attention runs the sequence over ``data``.
+
+# phase 3: Llama-3-8B's projection (K, N): k/v, q/o, gate/up, down, lm_head,
+# at a decode step's 4 rows (2 a data shard) and a k = 4 verify's 20 (10 a
+# shard: route A, where the whole call takes route B); 40 rows (20 a shard,
+# route B on both sides) at the first two
+MESH_SHAPES = ((4096, 1024), (4096, 4096), (4096, 14336), (14336, 4096), (4096, 128256))
+MESH_ROWS = (4, 20)
+MESH_ROUTE_B_ROWS = 40
+MESH_NEW_TOKENS = 8
+RING_TOKENS = 512
+RING_DATA = 4
+# phase 5's paged speculative run over a (2, 4) mesh: eight slots, so that
+# a k = 4 verify's 40 rows keep route B on 20 a shard, and prompts whose
+# padded chunks (112 cold, 48 warm) keep route B on half their rows
+MESH_SLOTS = 8
+MESH_SHARED = 64
+MESH_TAILS = (33, 40, 45, 47)
+
+
+def virtual_mesh(dev, data, model):
+    """A (data, model) mesh whose every cell is ``dev``."""
+    from fp8_quantization_tpu_torch.parallel import make_mesh
+
+    return make_mesh(data=data, model=model, devices=[dev] * (data * model))
+
+
+def partitioned_call(mesh, fn, wrapper):
+    """``fn()`` inside ``partitioned_kernels(mesh)``; returns its result, the
+    launches it added to ``wrapper`` and ``shard_kernels.CALLS``."""
+    from fp8_quantization_tpu_torch.parallel import shard_kernels as sk
+
+    sk.reset_calls()
+    before = wrapper.launches
+    with sk.partitioned_kernels(mesh):
+        out = fn()
+    return out, wrapper.launches - before, dict(sk.CALLS)
+
+
+def check_sharded_kernels(fm, dm, dev):
+    """Phase 3: K4 (bf16 and coded x) and K5 partitioned over a virtual
+    (2, 4) mesh at ``MESH_SHAPES``, the codes placed by ``shard_variables``:
+    each call launches its kernel once per cell (8) on the (rows / 2, K, N /
+    4) shard, and its gathered result holds against the plain version (bit
+    for bit where a shard takes route A, and for K5; within
+    ``within_requant_step`` on route B) and against the unsharded kernel
+    (equal where both take one route). At M = 4 the sharded and unsharded
+    calls are timed (CUDA events; the sharded one's host work, 8 launches
+    and 8 gather copies, is queued behind the device sleep as well).
+    Returns the worst |d| against the plain versions and the timings."""
+    from fp8_quantization_tpu_torch.numerics.codec import pack_exmy, unpack_exmy
+    from fp8_quantization_tpu_torch.parallel import shard_kernels as sk
+    from fp8_quantization_tpu_torch.parallel import shard_variables
+
+    t0 = time.perf_counter()
+    mesh = virtual_mesh(dev, 2, 4)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    act = device_qscalars(dev, 4.0, 4, 4, 1)
+    x_bias = torch.tensor(3, dtype=torch.int32, device=dev)
+    worst = {"K4": 0.0, "K5": 0.0}
+    timings = {}
+    for k, n in MESH_SHAPES:
+        rows = MESH_ROWS + ((MESH_ROUTE_B_ROWS,) if (k, n) in MESH_SHAPES[:2] else ())
+        x, wq, bias = gemm_operands(max(rows), k, n, dev, seed=k + n + 18)
+        pw = dm.pack_weights(wq, bias, 3, 4)
+        del wq
+        w_eff = dm.unpack_weights(pw)
+        xq = fm.quantize_block_plain(x, *act)
+        x_codes = pack_exmy(xq, 3, 4, x_bias, clip_of=True)
+        x8, w4, _ = int4_operands(gen, max(rows), k, n, dev)
+        shard_variables({"w_codes": pw.codes, "w_pack_bias": pw.bias, "w_i4": w4}, mesh)
+        for m in rows:
+            shard_route, whole_route = fm.gemm_route(m // 2), fm.gemm_route(m)
+            forms = (("bf16 x", xq[:m].to(torch.bfloat16), {}, xq[:m]),
+                     ("coded x", x_codes[:m], dict(x_bias=x_bias, x_expo=3, x_mant=4),
+                      unpack_exmy(x_codes[:m], 3, 4, x_bias)))
+            for what, xin, xkw, x_eff in forms:
+                kw = dict(expo_width=3, mant_width=4, **xkw)
+                plain = dm.dequant_matmul_plain(xin, pw.codes, pw.bias, **kw)
+                whole = dm.dequant_matmul(xin, pw.codes, pw.bias, **kw)
+                ours, launches, calls = partitioned_call(
+                    mesh, lambda: sk.sharded_dequant_matmul(xin, pw.codes, pw.bias, **kw),
+                    dm.dequant_matmul)
+                if shard_route == "A":
+                    ok_plain = torch.equal(ours, plain)
+                else:
+                    ok_plain = fm.within_requant_step(ours, plain,
+                                                      fm.sum_tolerance(x_eff, w_eff))[0]
+                ok_whole = (torch.equal(ours, whole) if shard_route == whole_route
+                            else gemm_verdict(fm, whole, plain, x_eff, w_eff, None, plain)[1])
+                worst["K4"] = max(worst["K4"], float((ours - plain).abs().max()))
+                if not (ok_plain and ok_whole and launches == 8
+                        and calls == {"partitioned": 1, "unsharded": 0, "split_on_call": 0}):
+                    raise SystemExit(f"sharded K4 {m}x{k}x{n} {what}: against plain {ok_plain}, "
+                                     f"against the unsharded kernel {ok_whole}, launches "
+                                     f"{launches}, calls {calls}")
+            xin = x8[:m]
+            plain = dm.int4_matmul_plain(xin, w4, k=k)
+            ours, launches, calls = partitioned_call(
+                mesh, lambda: sk.sharded_int4_matmul(xin, w4, k=k), dm.int4_matmul)
+            if not (torch.equal(ours, plain) and torch.equal(ours, dm.int4_matmul(xin, w4, k=k))
+                    and launches == 8 and calls["partitioned"] == 1):
+                raise SystemExit(f"sharded K5 {m}x{k}x{n}: differs from its plain version or "
+                                 f"the unsharded kernel, or launches {launches}, calls {calls}")
+            if m == MESH_ROWS[0]:
+                xb = xq[:m].to(torch.bfloat16)
+                timings[(k, n)] = {
+                    "K4": cuda_ms(lambda: dm.dequant_matmul(xb, pw.codes, pw.bias, expo_width=3,
+                                                            mant_width=4), 3, SHORT_HEAD_START),
+                    "K4 sharded": cuda_ms(lambda: partitioned_call(
+                        mesh, lambda: sk.sharded_dequant_matmul(
+                            xb, pw.codes, pw.bias, expo_width=3, mant_width=4),
+                        dm.dequant_matmul), 3, SHORT_HEAD_START),
+                    "K5": cuda_ms(lambda: dm.int4_matmul(xin, w4, k=k), 3, SHORT_HEAD_START),
+                    "K5 sharded": cuda_ms(lambda: partitioned_call(
+                        mesh, lambda: sk.sharded_int4_matmul(xin, w4, k=k), dm.int4_matmul),
+                        3, SHORT_HEAD_START)}
+            phase("kernels", f"sharded K4 (bf16 and coded x) and K5 at {m}x{k}x{n} over (2, 4): "
+                             f"8 launches a call on {m // 2}x{k}x{n // 4} shards, route "
+                             f"{shard_route} a shard ({whole_route} whole); "
+                             + ("K4 equal to plain" if shard_route == "A" else
+                                "K4 within the route B contract")
+                             + (", equal to the unsharded kernel" if shard_route == whole_route
+                                else ", the unsharded call within its own contract")
+                             + "; K5 equal to plain and to the unsharded kernel"
+                             + ("; ms at M = 4: " + ", ".join(
+                                 f"{key} {v:.4f}" for key, v in timings[(k, n)].items())
+                                if m == MESH_ROWS[0] else ""))
+        del x, xq, x_codes, x8, w4, pw, w_eff, plain, whole, ours
+        torch.cuda.empty_cache()
+    phase("kernels", f"the sharded K4/K5 checks took {time.perf_counter() - t0:.1f} s")
+    return worst, timings
+
+
+@contextlib.contextmanager
+def plain_where_shards_change_route(data):
+    """The layers' K4 calls through K4's plain version where their rows
+    divide over ``data`` and take another route whole than a shard's share
+    takes (17 to 32 rows over two: route B whole, route A a shard, and route
+    A is bit for bit the plain version), and through
+    ``sharded_dequant_matmul`` (so the counted kernel) elsewhere. Yields the
+    count of the diverted calls (no launch), by kernel."""
+    from fp8_quantization_tpu_torch.ops.cuda import dequant_matmul as dm
+    from fp8_quantization_tpu_torch.ops.cuda import fused_matmul as fm
+    from fp8_quantization_tpu_torch.parallel import shard_kernels as sk
+
+    wrapper = sk.sharded_dequant_matmul
+    diverted = {"K4": 0}
+
+    def chosen(x2d, codes, bias, **kw):
+        m = x2d.shape[0]
+        if m % data == 0 and fm.gemm_route(m) != fm.gemm_route(m // data):
+            diverted["K4"] += 1
+            return dm.dequant_matmul_plain(x2d, codes, bias, **kw)
+        return wrapper(x2d, codes, bias, **kw)
+
+    sk.sharded_dequant_matmul = chosen
+    try:
+        yield diverted
+    finally:
+        sk.sharded_dequant_matmul = wrapper
+
+
+def serve_mesh(name, model, spec, qp, counters, dev, per_forward, mesh, reference):
+    """Phase 4: ``serve_llama``'s prompts for ``MESH_NEW_TOKENS`` tokens
+    through a ``ContinuousBatcher`` over ``mesh``, its logit rows recorded.
+    Placing the model (``reshard``) is timed and its memory read. Every
+    product must run partitioned (``shard_kernels.CALLS``: none unsharded,
+    no weight split at a call; every chunk and step here divides over
+    ``data``, so each product launches its kernel once a cell: the dense
+    kernel's ``per_forward`` times the mesh's size). Against ``reference``
+    (the same prompts served without a mesh, recorded or not): the requests
+    whose admission keeps its K2/K4 route on the shards' rows give its
+    tokens (and logit rows) bit for bit. An admission of 17 to 32 rows
+    takes route A on its 16 or fewer a shard where the whole call takes
+    route B; such a request is held bit for bit (tokens and logit rows) to
+    the same prompts served without a mesh with K4's plain version on
+    exactly those calls (``plain_where_shards_change_route``), and where its
+    tokens part from ``reference`` is printed."""
+    from fp8_quantization_tpu_torch.models.serving import ContinuousBatcher
+    from fp8_quantization_tpu_torch.ops.cuda import fused_matmul as fm
+    from fp8_quantization_tpu_torch.parallel import shard_kernels as sk
+
+    torch.cuda.synchronize()
+    before_gb = torch.cuda.memory_allocated(dev) / 1e9
+    t0 = time.perf_counter()
+    batcher = ContinuousBatcher(model, spec, slots=LLAMA_SLOTS, max_seq=LLAMA_MAX_SEQ, qp=qp,
+                                mesh=mesh)
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t0
+    shards_gb = torch.cuda.memory_allocated(dev) / 1e9 - before_gb
+    dense_key = next(key for key in per_forward if key != "K1")
+    sk.reset_calls()
+    run = serve_llama(name, model, spec, qp, counters, dev,
+                      {**per_forward, dense_key: per_forward[dense_key] * mesh.size},
+                      batcher=batcher, record=True, new_tokens=MESH_NEW_TOKENS)
+    calls = dict(sk.CALLS)
+    forwards = len(run["step_s"]) + len(run["chunks"])
+    dense = llama_dense_per_forward(spec)
+    data = mesh.shape["data"]
+    changed = [i for i, c in enumerate(run["chunks"])
+               if c % data == 0 and fm.gemm_route(c) != fm.gemm_route(c // data)]
+    kept = [i for i in range(len(run["chunks"])) if i not in changed]
+    ref_tokens = [t[:MESH_NEW_TOKENS] for t in reference["tokens"]]
+    # a reference served unrecorded holds the tokens only
+    ref_rows = [r[:MESH_NEW_TOKENS] for r in reference["rows"]] or None
+
+    def equal(i, tokens, rows):
+        return run["tokens"][i] == tokens[i] and (
+            rows is None or rows_equal([run["rows"][i]], [rows[i]]))
+
+    exact = all(equal(i, ref_tokens, ref_rows) for i in kept)
+    switched, parted = None, {}
+    if changed:
+        with plain_where_shards_change_route(data) as diverted:
+            switched = serve_llama(f"{name}, K4 plain where the shards take another route",
+                                   model, spec, qp, counters, dev, per_forward, record=True,
+                                   new_tokens=MESH_NEW_TOKENS, uncounted=diverted)
+        switched["diverted"] = dict(diverted)
+        exact = exact and diverted["K4"] == dense * len(changed) and all(
+            equal(i, switched["tokens"], switched["rows"]) for i in range(len(run["chunks"])))
+        parted = {i: next((j for j, (a, b) in enumerate(zip(run["tokens"][i], ref_tokens[i]))
+                           if a != b), None) for i in changed}
+    ok = (exact
+          and calls == {"partitioned": dense * forwards, "unsharded": 0, "split_on_call": 0})
+    run.update(calls=calls, place_s=place_s, shards_gb=shards_gb, exact=exact,
+               changed_products=dense * len(changed), changed_requests=changed,
+               parted_from_kernel_run=parted, mesh=dict(mesh.shape))
+    phase("main", f"Llama-3-8B {name} over a virtual ({data}, {mesh.shape['model']}) mesh: "
+                  f"placed in {place_s:.2f} s, shards {shards_gb:.2f} GB, peak "
+                  f"{run['peak_gb']:.2f} GB; partitioned calls {calls} for {forwards} forwards; "
+                  f"{dense * len(changed)} products took another route on their shards "
+                  f"(requests {changed}); requests {kept} equal to the single-device run and "
+                  + (f"all {len(run['chunks'])} equal to the single-device run with K4 plain on "
+                     f"the {switched['diverted']['K4']} switched calls, " if changed else "")
+                  + f"bit for bit (tokens and logit rows): {exact}"
+                  + (f"; the switched requests part from the kernel run at token {parted}"
+                     if changed else "") + f"; ok={ok}")
+    if not ok:
+        raise SystemExit(f"Llama {name} over the mesh: partitioned calls or tokens wrong")
+    return run
+
+
+def check_ring_prefill(model, spec, dev):
+    """Phase 4: Llama-3-8B FAST (``fused_sdpa`` off: the einsum route)
+    prefills one ``RING_TOKENS``-token prompt into an empty cache with
+    ``ring_spec`` over a virtual ``(RING_DATA, 1)`` mesh and dense.
+
+    In f32, as served: every ``ring_attention`` call holds against
+    ``full_attention`` on its own inputs at JAX's ``rtol = atol = 2e-5``,
+    and layer 0's K/V cache (written before any attention) is equal. Past
+    layer 0 the two part. The ring folds its K/V blocks by an online
+    softmax (another summation order), and it multiplies the scores by
+    ``d ** -0.5``, as JAX's ring does, where the einsum divides them by the
+    f32 ``sqrt(d)`` (another rounding of the scale). FP8 sites turn such
+    one-ulp differences into grid steps at rounding midpoints, and 32 layers
+    compound them. So the f32 logits are held below the reading of a
+    lower-precision control taken in the same run, K7's dense prefill (bf16
+    q, k and v) from the einsum: a relative RMS under that reading, and the
+    same argmax where the einsum's top-1/top-2 margin is at least twice
+    their max |d|.
+
+    The witness, in f64: the ring's attention in f64 at the einsum's scale
+    (``1 / sqrt_f32(d)``) against ``full_attention`` in f64 at that scale,
+    in the same block, must meet JAX's bar for the ring prefill (its
+    ``tests/test_ring_attention.py``): logits within ``rtol = atol =
+    2e-4`` and every layer's K/V cache equal. In f64 the two summation
+    orders differ far below an f32 rounding step, so what is left is what
+    the ring computes. A third f64 run, the ring at its own ``d ** -0.5``,
+    reads what the scale convention alone does to the logits."""
+    from fp8_quantization_tpu_torch.models import llama as llama_mod
+    from fp8_quantization_tpu_torch.models.llama import KVCache
+    from fp8_quantization_tpu_torch.parallel.ring_attention import full_attention, ring_attention
+    from fp8_quantization_tpu_torch.quant.sites import QuantPhase
+
+    t0 = time.perf_counter()
+    mesh = virtual_mesh(dev, RING_DATA, 1)
+    einsum_qp = QuantPhase(phase="fixed", fast=True, fused_sdpa=False)
+    tokens = torch.as_tensor(np.random.default_rng(18).integers(0, spec.vocab_size,
+                                                                (1, RING_TOKENS)), device=dev)
+    hd = spec.hidden_size // spec.num_heads
+    einsum_scale = 1.0 / float(torch.sqrt(torch.tensor(float(hd), dtype=torch.float32)))
+    ratios = []
+
+    def held(q, k, v, mesh_, **kw):
+        out = ring_attention(q, k, v, mesh_, **kw)
+        ref = full_attention(q, k, v, causal=kw.get("causal", True))
+        ratios.append(float(((out - ref).abs() / (2e-5 + 2e-5 * ref.abs())).max()))
+        return out
+
+    def ring64(scale):
+        return lambda q, k, v, mesh_, **kw: ring_attention(
+            q.double(), k.double(), v.double(), mesh_, scale=scale, **kw).float()
+
+    def dense64(q, k, v, mesh_, *, causal, **_):
+        return full_attention(q.double(), k.double(), v.double(), causal=causal,
+                              scale=einsum_scale).float()
+
+    def prefill(ring, qp=einsum_qp, attend=ring_attention):
+        """Logits, cache and seconds of one prefill; with ``ring`` the
+        blocks' ring branch runs ``attend``."""
+        model.ring_spec = (mesh, "data") if ring else None
+        llama_mod.ring_attention = attend
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with torch.no_grad():
+                logits, cache = model(tokens, KVCache.zeros(spec, 1, RING_TOKENS, device=dev), qp)
+            torch.cuda.synchronize()
+            return logits[0].float(), cache, time.perf_counter() - t
+        finally:
+            model.ring_spec = None
+            llama_mod.ring_attention = ring_attention
+
+    def equal_layers(a, b):
+        return sum(torch.equal(a.k[i], b.k[i]) and torch.equal(a.v[i], b.v[i])
+                   for i in range(spec.num_layers))
+
+    logits_r, cache_r, _ = prefill(True, attend=held)
+    ring_s = prefill(True)[2]
+    logits_d, cache_d, dense_s = prefill(False)
+    logits_k7 = prefill(False, serving_phase(False))[0]
+    logits_r64, cache_r64, _ = prefill(True, attend=ring64(einsum_scale))
+    logits_d64, cache_d64, _ = prefill(True, attend=dense64)
+    logits_own64 = prefill(True, attend=ring64(None))[0]
+    diff = float((logits_r - logits_d).abs().max())
+    rms, legal = rel_rms(logits_r, logits_d), rel_rms(logits_k7, logits_d)
+    top2 = torch.topk(logits_d, 2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) >= 2 * diff
+    same = bool(((logits_r.argmax(-1) == logits_d.argmax(-1)) | ~decided).all())
+    within = float(torch.isclose(logits_r, logits_d, rtol=2e-4, atol=2e-4).float().mean())
+    equal = [float((cache_r.k[i] == cache_d.k[i]).float().mean()) for i in range(spec.num_layers)]
+    layer0 = torch.equal(cache_r.k[0], cache_d.k[0]) and torch.equal(cache_r.v[0], cache_d.v[0])
+    witness = dict(
+        max_diff=float((logits_r64 - logits_d64).abs().max()),
+        within_2e4=bool(torch.isclose(logits_r64, logits_d64, rtol=2e-4, atol=2e-4).all()),
+        cache_equal_layers=equal_layers(cache_r64, cache_d64),
+        own_scale_rms=rel_rms(logits_own64, logits_d64),
+        einsum_f32_rms=rel_rms(logits_d, logits_d64), ring_f32_rms=rel_rms(logits_r, logits_d64))
+    ok = (len(ratios) == spec.num_layers and max(ratios) <= 1.0 and layer0 and rms < legal
+          and same and bool(torch.isfinite(logits_r).all()) and witness["within_2e4"]
+          and witness["cache_equal_layers"] == spec.num_layers)
+    phase("main", f"Llama-3-8B ring prefill, {RING_TOKENS} tokens over a virtual ({RING_DATA}, 1) "
+                  f"mesh: {len(ratios)} ring_attention calls within 2e-5 of full_attention on "
+                  f"their own inputs (worst |d| / tol {max(ratios):.3g}); layer 0's K/V cache "
+                  f"equal {layer0}; K cache equal fraction by layer "
+                  f"{[round(e, 4) for e in equal[:4]]} ... {round(equal[-1], 4)}; logits max|d| "
+                  f"{diff:.4g}, relative RMS {rms:.4g} (limit: K7's dense prefill from the "
+                  f"einsum, {legal:.4g}), {within:.4f} of them within 2e-4, same argmax where "
+                  f"decided {same} ({int(decided.sum())} of {decided.numel()} positions "
+                  f"decided); f64 witness at the einsum's scale: ring against dense logits "
+                  f"max|d| {witness['max_diff']:.4g}, all within 2e-4 {witness['within_2e4']}, "
+                  f"K/V cache equal in {witness['cache_equal_layers']} of {spec.num_layers} "
+                  f"layers; relative RMS from the f64 dense: the ring in f64 at d**-0.5 "
+                  f"{witness['own_scale_rms']:.4g}, the f32 einsum {witness['einsum_f32_rms']:.4g}"
+                  f", the f32 ring {witness['ring_f32_rms']:.4g}; ring {1e3 * ring_s:.1f} ms, "
+                  f"dense einsum {1e3 * dense_s:.1f} ms; {time.perf_counter() - t0:.1f} s; ok={ok}")
+    if not ok:
+        raise SystemExit("Llama ring prefill: outside its contract")
+    return dict(ring_ms=1e3 * ring_s, dense_ms=1e3 * dense_s, max_diff=diff, rms=rms,
+                legal_rms=legal, within_2e4=within, cache_equal=equal, worst_ratio=max(ratios),
+                f64=witness)
+
+
+def mesh_prompts(spec):
+    rng = np.random.default_rng(21)
+    shared = rng.integers(0, spec.vocab_size, MESH_SHARED).tolist()
+    return [shared + rng.integers(0, spec.vocab_size, n).tolist() for n in MESH_TAILS]
+
+
+def check_mesh_batchers(dev, counters):
+    """Phase 5: Llama-3-8B at full width and depth 2, packed (PACKED +
+    packed_kv + fused): the paged batcher with a self-draft (k = 4) and a
+    prefix cache over a virtual (2, 4) mesh, and ``SpeculativeDecoder``
+    over (1, 8), each with the tokens of the same batcher without a mesh
+    (every product keeps its route on its shards: ``MESH_SLOTS`` and
+    ``mesh_prompts``); then ``parallel.dryrun.dryrun_multichip`` over eight
+    cells of the card (tiny shapes through K4 and K5)."""
+    from fp8_quantization_tpu_torch.models.llama import LLAMA3_8B
+    from fp8_quantization_tpu_torch.models.prefix_cache import PrefixCache
+    from fp8_quantization_tpu_torch.models.serving import pack_llama
+    from fp8_quantization_tpu_torch.models.speculative import SpeculativeDecoder
+    from fp8_quantization_tpu_torch.parallel import shard_kernels as sk
+    from fp8_quantization_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    spec = dataclasses.replace(LLAMA3_8B, num_layers=2)
+    model = calibrated_llama(spec, dev, seed=1)
+    pack_llama(model)
+    qp = serving_phase(True)
+    prompts = mesh_prompts(spec)
+
+    def serve(mesh):
+        from fp8_quantization_tpu_torch.models.paged_kv import PagedBatcher
+
+        pc = PrefixCache(max_tokens=4096, bucket=16)
+        b = PagedBatcher(model, spec, slots=MESH_SLOTS, num_pages=LLAMA_PAGES,
+                         page_size=LLAMA_PAGE, max_seq=LLAMA_MAX_SEQ, qp=qp, mesh=mesh,
+                         prefix_cache=pc, draft_model=model, draft_spec=spec, spec_k=SPEC_K)
+        zero_counts(counters)
+        sk.reset_calls()
+        slots = [b.admit(p, max_new_tokens=MESH_NEW_TOKENS) for p in prompts]
+        b.run_to_completion()
+        return ([b.retire(s) for s in slots], read_counts(counters), dict(sk.CALLS),
+                (pc.hits, pc.misses), b.acceptance_rate)
+
+    plain = serve(None)
+    meshed = serve(virtual_mesh(dev, 2, 4))
+    spec_plain = SpeculativeDecoder(model, spec, model, spec, k=SPEC_K, qp=qp).generate(
+        prompts[0], MESH_NEW_TOKENS)[0]
+    sk.reset_calls()
+    spec_mesh = SpeculativeDecoder(model, spec, model, spec, k=SPEC_K, qp=qp,
+                                   mesh=virtual_mesh(dev, 1, 8)).generate(
+        prompts[0], MESH_NEW_TOKENS)[0]
+    spec_calls = dict(sk.CALLS)
+    dry = dryrun_multichip(8, [dev] * 8)
+    ok = (meshed[0] == plain[0] and meshed[3] == plain[3] == (3, 1)
+          and meshed[2]["unsharded"] == meshed[2]["split_on_call"] == 0
+          and meshed[2]["partitioned"] > 0 and meshed[1]["K4"] > plain[1]["K4"]
+          and spec_mesh == spec_plain and spec_calls["unsharded"] == 0
+          and spec_calls["partitioned"] > 0)
+    phase("model", f"Llama-3-8B width {spec.hidden_size}, depth 2, PACKED+packed_kv+fused over "
+                   f"virtual meshes: the paged speculative batcher with a prefix cache "
+                   f"({MESH_SLOTS} slots, k = {SPEC_K}, hits/misses {meshed[3]}, acceptance "
+                   f"{meshed[4]:.3f}) over (2, 4) gives the tokens without a mesh "
+                   f"{meshed[0] == plain[0]} ({meshed[0][0][:4]}...), partitioned calls "
+                   f"{meshed[2]}, launches {meshed[1]} (without a mesh {plain[1]}); "
+                   f"SpeculativeDecoder over (1, 8) gives them {spec_mesh == spec_plain} "
+                   f"(calls {spec_calls}); dry run over eight cells {dry}; "
+                   f"{time.perf_counter() - t0:.1f} s; ok={ok}")
+    if not ok:
+        raise SystemExit("the mesh batchers at depth 2: tokens or partitioned calls wrong")
+    del model
+    torch.cuda.empty_cache()
+    return dict(paged_calls=meshed[2], paged_launches=meshed[1], spec_calls=spec_calls,
+                seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -5551,6 +6017,8 @@ def main() -> int:
     attention_err, k7_vit = check_attention(LLAMA3_8B, dev)
     gemm_err.update(attention_err)
     check_k5(dm, dev)
+    mesh_err, mesh_times = check_sharded_kernels(fm, dm, dev)
+    gemm_err["K4"] = max(gemm_err["K4"], mesh_err["K4"])
     cnn_err, k3_cnn = check_k3_cnn(k3, dev, 1e6 * sm_clock_mhz)
     max_err = max(max_err, cnn_err)
     int8_conv = check_int8_conv(dev)
@@ -5627,7 +6095,7 @@ def main() -> int:
 
     # Llama-3-8B served by ContinuousBatcher; K7 and K6 checked and timed at
     # the shapes each run gave them
-    llama_spec, llama, prefix_spec, paged = run_llama_serving(dev, counters)
+    llama_spec, llama, prefix_spec, paged, mesh = run_llama_serving(dev, counters)
     times.update(time_llama_attention(llama_spec, dev, llama["fast"], False, gemm_err))
     times["K6 codes"] = time_llama_attention(llama_spec, dev, llama["packed"], True,
                                              gemm_err)["K6"]
@@ -5656,6 +6124,7 @@ def main() -> int:
                   f"{bert_s:.1f} s in all")
     check_llama_model(dev, counters)
     check_llama_uniform(dev, counters)
+    mesh_model = check_mesh_batchers(dev, counters)
 
     # launches: each kernel's count in the main-path run that drives it in
     # the configuration timed above (K4: bf16 x, as --packed-weights runs it;
@@ -5753,6 +6222,17 @@ def main() -> int:
             **{f"nlp {run}": r["counts"][key] for run, r in bert["nlp"].items()},
             **{f"serving {mode}": r["counts"][key] for mode, r in bert["serving"].items()}}}
            if key in ("K1", "K2", "K4") else {}),
+        # the mesh runs of phase 4 and 5 (launches per run; every product
+        # partitioned, a launch per cell) and phase 3's M = 4 timings of the
+        # whole call and the partitioned one over a virtual (2, 4) mesh
+        **({"mesh_launches": (
+            {"mesh PACKED (2, 4)": mesh["mesh PACKED"]["counts"]["K4"],
+             "paged speculative depth 2 (2, 4)": mesh_model["paged_launches"]["K4"]}
+            if key == "K4" else {"mesh w4a8 (1, 4)": llama["w4a8"]["mesh"]["counts"]["K5"]}),
+            "sharded_call_ms": {f"4x{k}x{n} on 2x{k}x{n // 4} shards": {
+                "unsharded_ms": t[key], "sharded_ms": t[f"{key} sharded"]}
+                for (k, n), t in mesh_times.items()}}
+           if key in ("K4", "K5") else {}),
         **({"per_bert_forward": {"launches": bert_per_forward(bert_spec())[0],
                                  **{f: bert_gemms[key][f] for f in (
                                      "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}}
@@ -5843,6 +6323,16 @@ def main() -> int:
                   f"(QuantizedViT {PORT_VIT_K3_MS}); rank-3 approx ms a forward " + ", ".join(
                       f"{name} {r['ms']:.3f}" for name, r in slice17["rank3"]["k3"].items())
                   + f"; the interception, rank-3 and grid phases {slice17['seconds']:.1f} s"
+                  + f"; the mesh: ring prefill of {RING_TOKENS} tokens "
+                  f"{mesh['ring prefill']['ring_ms']:.1f} ms (dense einsum "
+                  f"{mesh['ring prefill']['dense_ms']:.1f}), mesh PACKED (2, 4) median step "
+                  f"{mesh['mesh PACKED']['step_ms_median']:.2f} ms (single device "
+                  f"{llama['packed']['step_ms_median']:.2f}), shards "
+                  f"{mesh['mesh PACKED']['shards_gb']:.2f} GB, peak "
+                  f"{mesh['mesh PACKED']['peak_gb']:.2f} GB, mesh w4a8 (1, 4) median step "
+                  f"{llama['w4a8']['mesh']['step_ms_median']:.2f} ms (single device "
+                  f"{llama['w4a8']['step_ms_median']:.2f}); the depth-2 mesh batchers "
+                  f"{mesh_model['seconds']:.1f} s"
                   + f"; {served}; per batch-{BATCH} forward (K1-K4) or serving run (K5, K6, "
                   "K7): "
                   f"{per_forward}; K7 per batch-{BATCH} ViT-B/16 forward {k7_vit['ms']:.4f} ms "

@@ -5,6 +5,3 @@ its counterpart's subpackage and module name. This package imports torch,
 numpy and the standard library only, and builds its CUDA kernels lazily at
 first use (``ops/cuda``), so importing it needs no GPU and no compiler.
 """
-
-# the end of every NotImplementedError raised for what this slice has not ported
-LATER = "is not ported yet: it belongs to a later slice of the port"

@@ -25,7 +25,15 @@ HF ViT names, through ``models.porting``) or a checkpoint of the port's own
 Data: synthetic batches, or ``--images-dir``: evaluation from ``<dir>/val``,
 calibration and BN re-estimation batches from ``<dir>/train``
 (``eval.data``; ``--native-loader`` decodes the val batches in C++ threads,
-``eval.native_data``). The mesh flags raise.
+``eval.native_data``). ``--mesh-data D --mesh-model M`` make a (D, M)
+mesh of the visible GPUs (``parallel.make_mesh``; the CPU's one device
+under ``--no-cuda``) and place the model on it
+(``parallel.shard_variables``), as the JAX CLI does. The run goes on the
+mesh's first device: the port partitions by hand only what the JAX
+package does (the K4/K5 products under ``parallel.partitioned_kernels``
+and ring attention), and this entry point, like JAX's, runs neither, so
+its batches are not split over ``data`` (JAX leaves their partitioning to
+GSPMD, which has no counterpart here).
 
 ``train-qat`` calibrates, then fine-tunes with quantization in the loop
 (``eval.trainer.train_qat``): learnable ranges, LSQ gradient scaling
@@ -47,7 +55,6 @@ import time
 
 import torch
 
-from . import LATER as _LATER
 from .config import (
     ApproxConfig,
     EstimatorConfig,
@@ -349,11 +356,6 @@ def load_weights(arch: str, model, model_dir):
     return load_checkpoint(model_dir, model)
 
 
-def _reject_unported(args):
-    if args.mesh_data * args.mesh_model > 1:
-        raise NotImplementedError(f"--mesh-data / --mesh-model {_LATER}")
-
-
 def sync(device: torch.device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -367,7 +369,6 @@ def setup(args):
     from .quant.sites import ESTIMATE, reset_search_grids
     from .utils.misc import seed_all
 
-    _reject_unported(args)
     if args.seed is not None:
         seed_all(args.seed)
     device = select_device(args.cuda)
@@ -466,6 +467,11 @@ def run_validate(args) -> dict:
     # BN re-estimation batches come from the training data, as calibration's
     bn_batches = (list(make_train_batches(args, model, args.reestimate_bn_batches))
                   [:args.reestimate_bn_batches] if args.reestimate_bn_batches else None)
+    if args.mesh_data * args.mesh_model > 1:
+        from .parallel import make_mesh, shard_variables
+
+        shard_variables(model, make_mesh(data=args.mesh_data, model=args.mesh_model,
+                                         devices=device.type))
     t2 = time.perf_counter()
     metrics, calibrated = validate_quantized(
         model, calib, eval_batches, num_est_batches=args.num_est_batches,

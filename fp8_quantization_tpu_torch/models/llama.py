@@ -45,12 +45,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .. import LATER as _LATER
 from ..config import QMethod, QuantConfig, RangeMethod
 from ..numerics.codec import pack_exmy, unpack_consts, unpack_exmy_bits
 from ..ops.cuda import attention as k7
 from ..ops.cuda import decode_attention as k6
 from ..ops.layers import QuantDense
+from ..parallel.ring_attention import ring_attention
 from ..quant.sites import FIXED, QuantPhase, QuantSite, decoded
 
 
@@ -167,11 +167,12 @@ class QuantLlamaBlock(nn.Module):
     def __init__(self, qc: QuantConfig, spec: LlamaSpec, *, ring_spec=None,
                  packed_kv: bool = False, generator=None, device=None):
         super().__init__()
-        if ring_spec is not None:
-            raise NotImplementedError(f"ring-attention prefill (ring_spec) {_LATER}")
         self.qc = qc
         self.spec = spec
         self.packed_kv = packed_kv
+        # (mesh, seq_axis): a prefill chunk (T > 1) into an EMPTY cache
+        # attends by ring attention over the mesh axis (T must divide by it)
+        self.ring_spec = ring_spec
         s = spec
         hd = s.head_dim
         kw = dict(use_bias=False, generator=generator, device=device)
@@ -284,7 +285,15 @@ class QuantLlamaBlock(nn.Module):
 
         fused = qp.fast and not qp.estimating and qp.fused_sdpa is True
         qg = q.reshape(b, t, s.num_kv_heads, groups, hd)
-        if chunk_attention and t > 1:
+        if self.ring_spec is not None and t > 1:
+            # ring prefill: exact sequence-parallel self-attention over the
+            # chunk (K/V blocks rotate around the mesh axis; online
+            # softmax); the cache prefix must be empty (length == 0)
+            mesh, seq_axis = self.ring_spec
+            ctx = ring_attention(q.to(torch.float32), k.to(torch.float32),
+                                 v.to(torch.float32), mesh, seq_axis=seq_axis, causal=True)
+            ctx = ctx.reshape(b, t, s.num_heads * hd)
+        elif chunk_attention and t > 1:
             # empty-cache prefill: the chunk is the cache prefix; the store/
             # load round trip matches the cache readback bit for bit
             kf, vf = load(k_st, kb), load(v_st, vb)                      # (B, T, K, D)
@@ -355,13 +364,13 @@ class QuantizedLlama(nn.Module):
     ``load_state_dict`` (``models.bridge`` carries JAX variables across).
     ``packed_kv`` (settable): the cache holds uint8 codes, build it with
     ``KVCache.zeros(..., dtype=torch.uint8)`` (or ``PagedKVCache.zeros``).
+    ``ring_spec`` (settable): ``(mesh, seq_axis)`` for a ring-attention
+    prefill; call it only with an EMPTY cache and T divisible by the axis.
     """
 
     def __init__(self, qc: QuantConfig, spec: LlamaSpec = LLAMA_TINY, *, ring_spec=None,
                  packed_kv: bool = False, generator=None, device=None):
         super().__init__()
-        if ring_spec is not None:
-            raise NotImplementedError(f"ring-attention prefill (ring_spec) {_LATER}")
         self.qc = qc
         self.spec = spec
         s = spec
@@ -374,6 +383,7 @@ class QuantizedLlama(nn.Module):
         self.lm_head = QuantDense(qc, s.hidden_size, s.vocab_size, use_bias=False,
                                   quantize_output=False, generator=generator, device=device)
         self.packed_kv = packed_kv
+        self.ring_spec = ring_spec
 
     @property
     def packed_kv(self) -> bool:
@@ -386,6 +396,17 @@ class QuantizedLlama(nn.Module):
         self._packed_kv = bool(value)
         for i in range(self.spec.num_layers):
             getattr(self, f"layer_{i}").packed_kv = self._packed_kv
+
+    @property
+    def ring_spec(self):
+        return self._ring_spec
+
+    @ring_spec.setter
+    def ring_spec(self, value):
+        """Switch every block between ring and single-device prefill."""
+        self._ring_spec = value
+        for i in range(self.spec.num_layers):
+            getattr(self, f"layer_{i}").ring_spec = value
 
     def forward(self, tokens, cache, qp: QuantPhase = FIXED, chunk_attention: bool = False):
         """tokens: (B, T) integer ids appended after ``cache.length``;

@@ -29,7 +29,6 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from .. import LATER as _LATER
 from ..quant.sites import FIXED, QuantPhase
 from .llama import LlamaSpec, page_slots
 from .sampling import GREEDY, SamplingParams
@@ -120,7 +119,8 @@ class PagedBatcher(ContinuousBatcher):
       the rollback only moves ``lengths``: rejected rows are dead data in
       the slot's own pages, which stay the slot's until :meth:`retire`.
 
-    ``mesh`` belongs to a later slice and raises.
+    ``mesh``: as the dense batcher's; the pool stays on the mesh's first
+    device (the JAX package shards its KV-head axis over ``model``).
     """
 
     def __init__(self, model, spec: LlamaSpec, *, slots: int = 4, num_pages: int = 64,
@@ -129,14 +129,12 @@ class PagedBatcher(ContinuousBatcher):
                  seed: int = 0, prefix_cache=None, draft_model=None,
                  draft_spec: Optional[LlamaSpec] = None, spec_k: int = 4,
                  draft_qp: Optional[QuantPhase] = None):
-        if mesh is not None:
-            raise NotImplementedError(f"the mesh-sharded paged batcher {_LATER}")
         self.page_size = page_size
         self.num_pages = num_pages
         super().__init__(model, spec, slots=slots, max_seq=max_seq, eos_token=eos_token,
-                         qp=qp, sampling=sampling, seed=seed, prefix_cache=prefix_cache,
-                         draft_model=draft_model, draft_spec=draft_spec, spec_k=spec_k,
-                         draft_qp=draft_qp)
+                         qp=qp, mesh=mesh, sampling=sampling, seed=seed,
+                         prefix_cache=prefix_cache, draft_model=draft_model,
+                         draft_spec=draft_spec, spec_k=spec_k, draft_qp=draft_qp)
         self.allocator = PageAllocator(num_pages)
         self.table = np.zeros((slots, -(-self.max_seq // page_size)), np.int32)
         self.lengths = np.zeros((slots,), np.int32)

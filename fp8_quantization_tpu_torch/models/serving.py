@@ -16,8 +16,16 @@ step is a batched speculative round (``models/speculative.py``): k+1 draft
 decodes and one (slots, k+1)-token target verify, each slot advancing by 1
 to k+1 tokens with a per-slot rollback of both caches' lengths. The draft
 is always prefilled cold over the full prompt. ``paged_kv.PagedBatcher``
-shares this protocol over a paged cache. The mesh-sharded batcher belongs
-to a later slice and raises.
+shares this protocol over a paged cache.
+
+With a ``mesh`` (``parallel.make_mesh``) the target's and the draft's
+weights are placed by ``parallel.reshard`` (which drops what an earlier
+batcher placed for another mesh) and every admission and
+step runs under ``parallel.partitioned_kernels``: the packed K4 and int4 K5
+products run per ``(data, model)`` cell on their code shards. The rest of a
+step, and the KV cache, stay on the mesh's first device (the JAX package
+places slots over ``data`` and KV heads over ``model`` and lets GSPMD
+partition the step).
 
 ``calibrate_llama`` then ``pack_llama`` are the calibrate-then-serve
 sequence of ``scripts/bench_llama.py`` and ``scripts/bench_llama_big.py``:
@@ -28,13 +36,15 @@ and weight caches dropped.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from .. import LATER as _LATER
 from ..config import QMethod
+from ..parallel.shard_kernels import partitioned_kernels
+from ..parallel.sharding import reshard
 from ..quant.sites import ESTIMATE, FIXED, QuantPhase
 from .llama import KVCache, LlamaSpec
 from .sampling import GREEDY, SamplingParams, sample_tokens, seeded_generator
@@ -105,6 +115,10 @@ class ContinuousBatcher:
     target law per slot. Both compose with each other and with packed
     (uint8) KV on either model.
 
+    ``mesh``: a (data, model) ``parallel.sharding.Mesh`` whose first device
+    holds the models; ``slots`` must divide over ``data``. See the module
+    docstring.
+
     The target's cache is held behind six methods (``_new_cache``,
     ``_admit_target``, ``_reserve``, ``_run_target``, ``_advance``,
     ``_lengths``) and ``retire``: here one dense slab a slot with its
@@ -119,8 +133,6 @@ class ContinuousBatcher:
                  seed: int = 0, prefix_cache=None, draft_model=None,
                  draft_spec: Optional[LlamaSpec] = None, spec_k: int = 4,
                  draft_qp: Optional[QuantPhase] = None):
-        if mesh is not None:
-            raise NotImplementedError(f"mesh-sharded continuous batching {_LATER}")
         self.model = model
         self.spec = spec
         self.slots = slots
@@ -137,12 +149,32 @@ class ContinuousBatcher:
         self.proposed = 0   # speculative telemetry (SpecStats)
         self.accepted = 0
         self.device = _device(model)
+        self.mesh = mesh
+        if mesh is not None:
+            if slots % mesh.shape["data"] != 0:
+                raise ValueError(
+                    f"slots ({slots}) must divide over the data axis "
+                    f"({mesh.shape['data']})"
+                )
+            if mesh.first != self.device:
+                raise ValueError(f"the model lives on {self.device}, the mesh's first "
+                                 f"device is {mesh.first}")
+            reshard(model, mesh)
+            if draft_model is not None:
+                reshard(draft_model, mesh)
         self.cache = self._new_cache()
         self.draft_cache = (self._slot_cache(draft_model, draft_spec)
                             if draft_model is not None else None)
         self.free: List[int] = list(range(slots))
         self.active: Dict[int, dict] = {}
         self._step_count = 0
+
+    def _partitioned(self):
+        """The context every device call of this batcher runs in: the
+        mesh's ``partitioned_kernels``, or none."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return partitioned_kernels(self.mesh)
 
     def _slot_cache(self, model, spec) -> KVCache:
         return KVCache.zeros(spec, self.slots, self.max_seq,
@@ -210,6 +242,10 @@ class ContinuousBatcher:
         pad rows over the end of the prefix. Every admission then stores
         its prompt's prefix. A draft is always prefilled cold over the
         whole prompt: the prefix cache holds the target's K/V only."""
+        with self._partitioned():
+            return self._admit(prompt, max_new_tokens)
+
+    def _admit(self, prompt: List[int], max_new_tokens: int) -> int:
         if not self.free:
             raise RuntimeError("no free slots")
         real = len(prompt)
@@ -272,8 +308,12 @@ class ContinuousBatcher:
         slot advances by 1 to ``spec_k`` + 1 tokens. Slots whose cache
         cannot hold a whole round finish early, within ``spec_k`` + 1 tokens
         of ``max_seq`` (the non-speculative step cuts at ``max_seq`` - 1)."""
-        if self.draft is not None:
-            return self._step_speculative()
+        with self._partitioned():
+            if self.draft is not None:
+                return self._step_speculative()
+            return self._step()
+
+    def _step(self) -> Dict[int, int]:
         live = [s for s, st in self.active.items() if not st["done"]]
         if not live:
             return {}

@@ -19,11 +19,13 @@ keys give other numbers, so only the laws are shared with it.
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
-from .. import LATER as _LATER
+from ..parallel.shard_kernels import partitioned_kernels
+from ..parallel.sharding import reshard
 from ..quant.sites import FIXED, QuantPhase
 from .llama import KVCache, LlamaSpec
 from .sampling import GREEDY, SamplingParams, filtered_probs, sample_tokens, seeded_generator
@@ -136,15 +138,22 @@ class SpeculativeDecoder:
     verification, token-identical to the target's greedy decode. With
     ``temperature > 0``: stochastic proposals and :func:`spec_accept`,
     distributed as ancestral sampling from the target's filtered
-    distribution. Both take packed (uint8) KV caches. The mesh-sharded
-    decoder belongs to a later slice and raises."""
+    distribution. Both take packed (uint8) KV caches.
+
+    ``mesh``: an optional (data, model) ``parallel.sharding.Mesh`` whose
+    first device holds both models: their weights are placed by
+    ``reshard`` and every forward runs under
+    ``partitioned_kernels``, so packed and int4 weights run their kernels
+    per shard (the convenience the ``ContinuousBatcher`` offers)."""
 
     def __init__(self, model, spec: LlamaSpec, draft_model, draft_spec: LlamaSpec, *,
                  k: int = 4, max_seq: Optional[int] = None, qp: QuantPhase = FIXED,
                  draft_qp: Optional[QuantPhase] = None, eos_token: int = -1,
                  sampling: SamplingParams = GREEDY, seed: int = 0, mesh=None):
+        self.mesh = mesh
         if mesh is not None:
-            raise NotImplementedError(f"mesh-sharded speculative decoding {_LATER}")
+            reshard(model, mesh)
+            reshard(draft_model, mesh)
         self.model, self.spec = model, spec
         self.draft, self.draft_spec = draft_model, draft_spec
         self.k = k
@@ -186,6 +195,12 @@ class SpeculativeDecoder:
         stats). Greedy: exactly the target's own greedy continuation.
         Stochastic: an exact sample of the target's ancestral sampling,
         whatever the draft."""
+        ctx = (partitioned_kernels(self.mesh) if self.mesh is not None
+               else contextlib.nullcontext())
+        with ctx:
+            return self._generate(prompt, max_new_tokens)
+
+    def _generate(self, prompt: List[int], max_new_tokens: int) -> Tuple[List[int], SpecStats]:
         row, t_cache = self._prefill(self.model, self.spec, self.qp, prompt)
         t_cur = sample_tokens(row, self.sampling, self._next_generator())
         _, d_cache = self._prefill(self.draft, self.draft_spec, self.draft_qp, prompt)

@@ -64,12 +64,12 @@ from ..config import ApproxConfig, EstimatorConfig, QMethod, QuantConfig
 from ..numerics.approx_matmul import approx_products
 from ..numerics.codec import unpack_exmy
 from ..numerics.luts import get_error_table
+from ..parallel import shard_kernels as sk
 from ..quant.sites import (FIXED, Affine, QuantPhase, QuantSite, codes_eligible, coded_shape,
                            decoded)
 from . import fastpath
 from .activations import CLAMP_ACTIVATIONS
 from .cuda import approx_matmul as k3
-from .cuda import dequant_matmul as k4
 from .cuda.dequant_matmul import PackedWeights
 from .fastpath import (Int8Weights, quantize_acts_affine, quantize_acts_int8, quantized_matmul,
                        quantized_matmul_int8, unpack_int4)
@@ -434,8 +434,10 @@ class QuantDense(_QuantOpBase):
             x, _ = self._quant_in(self._defer_affine(x, qp), qp)
             x2d = x.reshape(-1, k_in).to(torch.bfloat16)
             xkw = {}
-        out2d = k4.dequant_matmul(x2d, pw.codes, pw.bias, expo_width=pw.expo_width,
-                                  mant_width=pw.mant_width, **xkw)
+        # tensor-parallel under ``parallel.partitioned_kernels(mesh)``: each
+        # cell decodes only its (K, N/model) code shard
+        out2d = sk.sharded_dequant_matmul(x2d, pw.codes, pw.bias, expo_width=pw.expo_width,
+                                          mant_width=pw.mant_width, **xkw)
         res = out2d.reshape(*lead_shape, self.features)
         if self.bias is not None:
             res = res + self.bias
@@ -455,7 +457,9 @@ class QuantDense(_QuantOpBase):
         s, zp, lo, hi = self.activation_quantizer.uniform_int_params()
         x2d = decoded(x).reshape(-1, k_in).to(torch.float32)
         codes, cx = quantize_acts_int8(x2d, s[0], zp[0], lo[0], hi[0])
-        acc = None if w4 is None else k4.int4_matmul(codes, w4, k=k_in)
+        # tensor-parallel under ``parallel.partitioned_kernels(mesh)``: the
+        # nibble codes stay N-sharded per cell
+        acc = None if w4 is None else sk.sharded_int4_matmul(codes, w4, k=k_in)
         out2d = quantized_matmul_int8(codes, iw, s[0], cx, w_has_zp=iw.zp is not None,
                                       acc=acc)
         res = out2d.reshape(*lead_shape, self.features)

@@ -114,21 +114,27 @@ def test_cpu_tensor_takes_plain_version(rng):
 
 
 def test_unported_modes_raise():
-    """What stays unported around the approximate path: the mesh flags and
-    ring-attention prefill (the oracle-only modes run: the cases below).
-    LSQ gradient scaling is ported with QAT: a phase carries it, and QAT
-    refuses the approximate multiplier, which has no gradient."""
+    """Around the approximate path everything is ported now: the mesh flags
+    make a mesh of the visible devices (the CPU's one device cannot hold a
+    (2, 1) mesh, which raises as the JAX package's ``make_mesh`` does) and
+    a ring-attention prefill is a setting of the Llama blocks (the
+    oracle-only modes run: the cases below). LSQ gradient scaling is ported
+    with QAT: a phase carries it, and QAT refuses the approximate
+    multiplier, which has no gradient."""
     from fp8_quantization_tpu_torch import cli as tcli
     from fp8_quantization_tpu_torch import config as tc
-    from fp8_quantization_tpu_torch.models.llama import LLAMA3_8B, QuantLlamaBlock
+    from fp8_quantization_tpu_torch.models.llama import LLAMA_TINY, QuantLlamaBlock
+    from fp8_quantization_tpu_torch.parallel import make_mesh
     from fp8_quantization_tpu_torch.quant.sites import QuantPhase
 
     args = tcli.build_parser().parse_args(
         ["validate-quantized", "--architecture", "vit_quantized", "--mesh-data", "2"])
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tcli.setup(args)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        QuantLlamaBlock(tc.QuantConfig(), LLAMA3_8B, ring_spec=("mesh", "seq"))
+    assert (args.mesh_data, args.mesh_model) == (2, 1)
+    with pytest.raises(ValueError, match="needs 2 devices but only 1"):
+        make_mesh(data=args.mesh_data, model=args.mesh_model, devices="cpu")
+    mesh = make_mesh(data=2, devices=[torch.device("cpu")] * 2)
+    assert QuantLlamaBlock(tc.QuantConfig(), LLAMA_TINY,
+                           ring_spec=(mesh, "data")).ring_spec == (mesh, "data")
     assert QuantPhase(grad_scaling=True).grad_scaling
     from fp8_quantization_tpu_torch.models.demo import QuantizedDemoModel
     from fp8_quantization_tpu_torch.quant import qat

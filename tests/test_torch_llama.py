@@ -314,13 +314,22 @@ def test_packed_kv_toggles_on_the_same_modules(sides):
 
 
 def test_later_slices_raise():
-    """Ring prefill and the mesh-sharded paged batcher belong to a later
-    slice; the paged cache itself is ported (``test_torch_paged.py``)."""
+    """Ring prefill and the mesh-sharded paged batcher, which belonged to a
+    later slice, are ported: ``ring_spec`` reaches every block, and a paged
+    batcher takes a mesh whose ``data`` axis divides its slots (else it
+    raises as the JAX batcher does). Their runs are held in
+    ``test_torch_ring_attention.py`` and ``test_torch_parallel_spec.py``."""
     from fp8_quantization_tpu_torch.models.paged_kv import PagedBatcher
+    from fp8_quantization_tpu_torch.parallel import make_mesh, sharding
 
     spec = LlamaSpec(**SPEC)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        QuantizedLlama(qc(tc), spec, ring_spec=("mesh", "seq"))
-    model = QuantizedLlama(qc(tc), spec)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        PagedBatcher(model, spec, mesh="mesh")
+    mesh = make_mesh(data=2, model=2, devices=[torch.device("cpu")] * 4)
+    model = QuantizedLlama(qc(tc), spec, ring_spec=(mesh, "data"))
+    assert all(getattr(model, f"layer_{i}").ring_spec == (mesh, "data")
+               for i in range(spec.num_layers))
+    model.ring_spec = None
+    with pytest.raises(ValueError, match="must divide over the data axis"):
+        PagedBatcher(model, spec, slots=3, mesh=mesh)
+    assert PagedBatcher(model, spec, slots=4, mesh=mesh).mesh is mesh
+    # only packed codes are placed: this model is not packed
+    assert sharding.shards_of(model.layer_0.q_proj.kernel, mesh) is None

@@ -413,5 +413,13 @@ def test_stochastic_spec_paged_runs_rejects_and_repeats(port):
 
 
 def test_mesh_is_a_later_slice(port):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        _paged(port["target"], mesh="mesh")
+    """The mesh-sharded paged batcher, once a later slice, is ported: over
+    a (2, 2) mesh its tokens are the paged run's without a mesh; a mesh
+    whose ``data`` axis does not divide the slots raises."""
+    from fp8_quantization_tpu_torch.parallel import make_mesh
+
+    cpus = [torch.device("cpu")] * 4
+    with pytest.raises(ValueError, match="must divide over the data axis"):
+        _paged(port["target"], mesh=make_mesh(data=3, devices=cpus))
+    mesh = make_mesh(data=2, model=2, devices=cpus)
+    assert _serve(_paged(port["target"], mesh=mesh)) == _serve(_paged(port["target"]))

@@ -446,8 +446,18 @@ def test_stochastic_speculation_stays_in_support_and_repeats(models):
 
 
 def test_mesh_decoder_is_a_later_slice(models):
+    """The mesh-sharded decoder and speculative batcher, once a later
+    slice, are ported: over a (1, 2) mesh they give the tokens of their
+    runs without one; three slots do not divide over a data axis of 2."""
+    from fp8_quantization_tpu_torch.parallel import make_mesh
+
     target = models["target"]
-    with pytest.raises(NotImplementedError, match="later slice"):
-        SpeculativeDecoder(target, T_SPEC, target, T_SPEC, mesh="mesh")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        _spec(target, target, T_SPEC, mesh="mesh")
+    cpus = [torch.device("cpu")] * 2
+    mesh = make_mesh(data=1, model=2, devices=cpus)
+    prompt = PROMPTS[0]
+    assert (SpeculativeDecoder(target, T_SPEC, target, T_SPEC, mesh=mesh).generate(prompt, 6)
+            == SpeculativeDecoder(target, T_SPEC, target, T_SPEC).generate(prompt, 6))
+    with pytest.raises(ValueError, match="must divide over the data axis"):
+        _spec(target, target, T_SPEC, mesh=make_mesh(data=2, devices=cpus))
+    assert (_serve(_spec(target, target, T_SPEC, mesh=mesh), PROMPTS)[0]
+            == _serve(_spec(target, target, T_SPEC), PROMPTS)[0])

@@ -147,8 +147,13 @@ def test_admission_limits_and_later_slices(jax_side):
     with pytest.raises(RuntimeError, match="no free slots"):
         batcher.admit([3])
     assert (_pad_to_bucket(1), _pad_to_bucket(16), _pad_to_bucket(17)) == (16, 16, 32)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ContinuousBatcher(model, spec, mesh="mesh")
+    # the mesh batcher, once a later slice, is ported (its tests are in
+    # test_torch_parallel_serving.py): a mesh whose data axis does not
+    # divide the slots raises, as the JAX batcher does
+    from fp8_quantization_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(ValueError, match="must divide over the data axis"):
+        ContinuousBatcher(model, spec, slots=1, mesh=make_mesh(data=2, devices=["cpu"] * 2))
     # prefix caching and speculative decoding are ported (their parity tests
     # are in test_torch_prefix_spec.py): both construct, with their own state
     pc = PrefixCache(bucket=4)
